@@ -6,22 +6,34 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); build the CUDA near-field
-   kernels from ``ferreus_rbf_tpu_torch/csrc`` with nvcc;
+   kernels from ``ferreus_rbf_tpu_torch/csrc`` with nvcc and print ptxas'
+   registers and spills per kernel;
 2. kernel vs plain PyTorch version for all ten kernel types, f32 (H1) and
-   f64 (H2), with and without per-row counts, with sentinel entries and a
-   row of count 0;
+   f64 (H2), and the f64 gradient kernel (H3), with and without per-row
+   counts, with sentinel entries, a row of count 0 and (H3) targets that
+   are exact copies of sources;
 3. config-2 matvec: 100k uniform 3-D points, LinearRbf, p = 5, 8 RHS,
    uniform tree, at f32 and f64, against a dense f64 oracle on 1,024
    targets; median of 5 timed matvecs;
-4. the main path: the iterative fit of the albatite dataset (35,801 3-D
+4. the fit path: the iterative fit of the albatite dataset (35,801 3-D
    signed-distance points, Spheroidal order 5, base_range = total_sill =
-   span / 4, default Params), evaluation at the sources and on a 64^3 grid.
-   The kernels' launch counters are zeroed just before this phase and read
-   just after it.
+   span / 4, default Params), evaluation at the sources and on a 64^3
+   grid, then ``evaluate_with_gradients`` on the same grid, checked
+   against the values and against a dense f64 gradient on 1,024 grid
+   points, with its peak device memory;
+5. config-2 gradients (the JAX bench's gradient cell): 100k uniform points,
+   Spheroidal5, p = 5, 2 RHS, adaptive sparse tree, ``evaluate_with_gradients``
+   at the sources against value-only ``evaluate`` and a dense f64 oracle;
+6. the isosurface path: ``build_isosurface`` of the phase-4 fit at span/100
+   (the reference example's settings), checked for a non-empty mesh with
+   finite vertices inside the padded extents and no edge on more than two
+   facets.
 
-The line before the last is a JSON object with one entry per kernel (its
-launches in phase 4, and its error and time against the plain version at
-the albatite fit's shapes); the last line is
+Phases 4, 5 and 6 each zero the kernels' launch counters just before they
+drive the port and read them just after. The line before the last is a
+JSON object with one entry per kernel: its launches on its path (phase 4
+for H1/H2, phase 6 for H3), its error and time against the plain version
+at the albatite shapes, and its bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,11 +53,34 @@ REPLACES = {
     # listed in PERF.md)
     "near_field_f32": "ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:595",
     "near_field_f64": "ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:698",
+    "near_field_grad_f64": "ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:779",
 }
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # p = 5 Chebyshev truncation: ~5e-5 relative on the JAX package's error
 # budget; the check allows 10x that.
 CONFIG2_BOUND = 5e-4
+# gradients at p = 5 against a dense oracle: the JAX package's bound
+# (tests/test_fmm.py, test_matvec_gradients_match_dense)
+CONFIG2_GRAD_BOUND = 1e-2
+# albatite (p = 7) gradients against a dense f64 gradient
+ALBATITE_GRAD_BOUND = 1e-3
+
+# H100 SXM published peaks (NVIDIA data sheet): non-tensor FLOP/s by type
+# and HBM3 bytes/s. A kernel's bound is the larger of its flops over the
+# peak and its bytes (each operand read once, each output written once)
+# over the memory rate.
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+HBM_BYTES_S = 3.35e12
+# Flops per (target, source) pair of phi and of the gradient factor g,
+# counting a sqrt, log or divide as ONE flop (they are multi-instruction
+# sequences on the card, so the bound is a lower bound) and an FMA as two;
+# spheroidal counts its cheaper (near) branch.
+PHI_FLOPS = {"LinearRbf": 1, "ThinPlateSplineRbf": 3, "CubicRbf": 2, "Spheroidal3Rbf": 3,
+             "Spheroidal5Rbf": 3, "Spheroidal7Rbf": 3, "Spheroidal9Rbf": 3,
+             "Laplacian": 2, "OneOverR2": 1, "OneOverR4": 2}
+G_FLOPS = {"LinearRbf": 1, "ThinPlateSplineRbf": 2, "CubicRbf": 1, "Spheroidal3Rbf": 1,
+           "Spheroidal5Rbf": 1, "Spheroidal7Rbf": 1, "Spheroidal9Rbf": 1,
+           "Laplacian": 2, "OneOverR2": 2, "OneOverR4": 3}
 
 
 def log(msg):
@@ -70,17 +105,54 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
 
 
-def kernel_vs_plain(nf, kparams, tgt, src, w, nbr, cnt):
-    got = nf.near_field(tgt, src, w, nbr, cnt, kparams=kparams)
-    want = nf.near_field_plain(tgt, src, w, nbr, cnt, kparams=kparams)
+def kernel_vs_plain(nf, kparams, tgt, src, w, nbr, cnt, grad=False):
+    """(relative error, max |diff|) of the kernel against its plain
+    version; for H3 the worse of values and gradients."""
+    if grad:
+        got = nf.near_field_grad(tgt, src, w, nbr, cnt, kparams=kparams)
+        want = nf.near_field_grad_plain(tgt, src, w, nbr, cnt, kparams=kparams)
+    else:
+        got = (nf.near_field(tgt, src, w, nbr, cnt, kparams=kparams),)
+        want = (nf.near_field_plain(tgt, src, w, nbr, cnt, kparams=kparams),)
     torch.cuda.synchronize()
-    if not torch.isfinite(want).all():
+    if not all(torch.isfinite(x).all() for x in want):
         raise AssertionError("plain near field is not finite")
-    return rel_err(got, want), float((got - want).abs().max())
+    return (max(rel_err(a, b) for a, b in zip(got, want)),
+            max(float((a - b).abs().max()) for a, b in zip(got, want)))
+
+
+def near_field_bound(kparams, ops, tlive, slive, grad):
+    """(bound ms, "operations" or "bytes", flops) of one near-field call:
+    the live (target, source) pairs these operands need (real targets of a
+    row times the real sources of each tile it lists before its count,
+    sentinels excluded) times the flops per pair, against the bytes of the
+    operands and outputs."""
+    tgt, src, w, nbr, cnt = ops
+    u = nbr.shape[0]
+    idx = nbr.T.long()
+    live = torch.ones_like(idx, dtype=torch.bool)
+    if cnt is not None:
+        live &= torch.arange(u, device=idx.device)[None, :] < cnt[:, None]
+    per_row = (slive[idx] * live).sum(1)
+    pairs = float((per_row.double() * tlive.double()).sum())
+    name = kparams.kernel_type.value
+    nrhs, d = w.shape[1], tgt.shape[2]
+    per_pair = 8 + PHI_FLOPS[name] + 2 * nrhs  # 3 sub + 1 mul + 2 FMA = 8
+    if grad:
+        per_pair += G_FLOPS[name] + 3 + 2 * d * nrhs  # g * diff, d more FMAs per rhs
+    flops = pairs * per_pair
+    out_elems = tgt.shape[0] * tgt.shape[1] * nrhs * (1 + (d if grad else 0))
+    nbytes = sum(x.numel() * x.element_size() for x in ops if x is not None)
+    nbytes += out_elems * tgt.element_size()
+    t_ops = flops / PEAK_FLOPS[tgt.dtype]
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
 def phase_kernels(nf, kt_mod, dev):
-    """All kernel types x {f32, f64} x {counts, none} x nrhs {1, 8}."""
+    """H1/H2: all kernel types x {f32, f64} x {counts, none} x nrhs {1, 8};
+    H3: all kernel types x {counts, none} x nrhs {1, 2, 8}, f64, with
+    targets that are exact copies of sources."""
     g = torch.Generator(device="cpu").manual_seed(0)
     rows, t, s, u, ntiles = 300, 128, 256, 27, 400
     tgt = torch.rand((rows, t, 3), generator=g, dtype=torch.float64) - 0.5
@@ -114,12 +186,43 @@ def phase_kernels(nf, kt_mod, dev):
         log(f"phase 2: 10 kernel types x counts x nrhs {{1,8}}, {dtype}: "
             f"worst relative error {err:.3e} (bound {TOL[dtype]:.0e})")
 
+    # H3: values and gradients, f64; some targets are exact copies of sources
+    tgt64 = tgt.clone()
+    for r in range(1, rows, 7):
+        tile = int(nbr[0, r])
+        tgt64[r, :20] = src[tile, :, :20].T
+    worst = 0.0
+    for nrhs in (1, 2, 8):
+        w = torch.randn((ntiles + 1, nrhs, s), generator=g, dtype=torch.float64)
+        w[:, :, 200:] = 0.0
+        w[ntiles] = 0.0
+        ops = [x.to(dev) for x in (tgt64, src, w, nbr)]
+        for kt in kt_mod.KernelType:
+            kw = {"base_range": 1.0, "total_sill": 0.7} if "Spheroidal" in kt.value else {}
+            kp = kt_mod.KernelParams(kt, **kw)
+            for c in (None, cnt.to(dev)):
+                err, _ = kernel_vs_plain(nf, kp, *ops, c, grad=True)
+                if not err <= TOL[torch.float64]:
+                    key = (kt.value, nrhs, c is not None)
+                    raise AssertionError(f"H3 vs plain {key}: {err:.3e}")
+                worst = max(worst, err)
+                if c is not None:
+                    v, gr = nf.near_field_grad(*ops, c, kparams=kp)
+                    if float(v[0].abs().max()) != 0.0 or float(gr[0].abs().max()) != 0.0:
+                        raise AssertionError("H3: a row with count 0 must be zero")
+    log(f"phase 2: H3 near_field_grad_f64, 10 kernel types x counts x nrhs {{1,2,8}}, "
+        f"coincident targets: worst relative error {worst:.3e} (values and gradients; "
+        f"bound 1e-12)")
 
-def time_near_field(nf, tree, binned, dtype, kparams, nrhs, g):
-    """Kernel and plain-version times (ms) and errors on a tree's own
-    P2P and M2P operands."""
+
+def time_near_field(nf, tree, binned, dtype, kparams, nrhs, g, grad=False):
+    """Kernel and plain-version times (ms), errors and bounds on a tree's
+    own P2P and M2P operands (H3 when ``grad``)."""
     fs = tree._floats(dtype)
     bs = tree._binned_floats(binned, dtype)
+    rows, t, _ = bs["tpts"].shape
+    tlive = torch.bincount(binned["inv_flat"] // t, minlength=rows)
+    slive = {"p2p": tree._dev["src_mask"].sum(1)}
     w = torch.randn((tree.nsl + 1, nrhs, tree.smax), generator=g, dtype=torch.float64)
     w[-1] = 0.0
     w = w.to(tree.device, dtype)
@@ -131,6 +234,10 @@ def time_near_field(nf, tree, binned, dtype, kparams, nrhs, g):
         mt[-1] = 0.0
         out["m2p"] = (bs["tpts"], fs["node_tiles"], mt.to(tree.device, dtype),
                       binned["wtab"], binned["wcnt"])
+        slive["m2p"] = torch.full((tree._m2p_nw + 1,), tree.nnodes, device=tree.device)
+        slive["m2p"][-1] = 0
+    kernel = nf.near_field_grad if grad else nf.near_field
+    plain = nf.near_field_grad_plain if grad else nf.near_field_plain
     res = {}
     for name, ops in out.items():
         tgt, src, _, nbr, cnt = ops
@@ -139,15 +246,37 @@ def time_near_field(nf, tree, binned, dtype, kparams, nrhs, g):
             live &= torch.arange(nbr.shape[0], device=nbr.device)[None, :] < cnt[:, None]
         # (target slot, source slot) pairs the kernel evaluates, pads included
         pairs = int(live.sum()) * tgt.shape[1] * src.shape[2]
-        rel, absd = kernel_vs_plain(nf, kparams, *ops)
+        rel, absd = kernel_vs_plain(nf, kparams, *ops, grad=grad)
         if not rel <= TOL[dtype]:
             raise AssertionError(f"{name} kernel vs plain: {rel:.3e} > {TOL[dtype]}")
-        ms = cuda_ms(lambda: nf.near_field(*ops, kparams=kparams))
-        plain_ms = cuda_ms(lambda: nf.near_field_plain(*ops, kparams=kparams), reps=3)
+        ms = cuda_ms(lambda: kernel(*ops, kparams=kparams))
+        plain_ms = cuda_ms(lambda: plain(*ops, kparams=kparams), reps=3)
+        bound_ms, bound_by, flops = near_field_bound(kparams, ops, tlive, slive[name], grad)
         res[name] = {"rel": rel, "abs": absd, "ms": ms, "plain_ms": plain_ms,
-                     "gpairs_s": pairs / (ms * 1e-3) / 1e9,
+                     "gpairs_s": pairs / (ms * 1e-3) / 1e9, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12,
                      "shape": [tuple(x.shape) for x in ops[:4]]}
     return res
+
+
+def log_near_field(prefix, name, r):
+    for part, m in r.items():
+        log(f"{prefix} {part} {name} shapes {m['shape']}: kernel {m['ms']:.4f} ms "
+            f"({m['gpairs_s']:.1f} Gpair/s, {m['tflops']:.2f} TFLOP/s), bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']}), plain {m['plain_ms']:.4f} ms, "
+            f"rel err {m['rel']:.3e}")
+
+
+def synced_median(fn, reps=5):
+    """Median host seconds of ``fn`` over ``reps`` calls, each ending in
+    ``torch.cuda.synchronize()``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2]
 
 
 def phase_config2(frt, nf, dev):
@@ -195,15 +324,46 @@ def phase_config2(frt, nf, dev):
     if not tier < 1e-5:
         raise AssertionError(f"config-2 f32 tier error {tier:.3e}")
     g = torch.Generator(device="cpu").manual_seed(1)
-    for dtype in (torch.float32, torch.float64):
+    for name, dtype in (("near_field_f32", torch.float32), ("near_field_f64", torch.float64)):
         r = time_near_field(nf, tree, tree._target_cache["src"], dtype, kp, nrhs, g)
-        for name, m in r.items():
-            log(f"phase 3: config-2 {name} {str(dtype)[6:]} nrhs {nrhs} shapes {m['shape']}: "
-                f"kernel {m['ms']:.4f} ms ({m['gpairs_s']:.1f} Gpair/s), "
-                f"plain {m['plain_ms']:.4f} ms, rel err {m['rel']:.3e}")
+        log_near_field(f"phase 3: config-2 nrhs {nrhs}", name, r)
+
+
+def dense_gradients(rbfi, targets, dev, chunk=256):
+    """Dense f64 gradient of the fitted interpolant at ``targets`` on the
+    card: ``pair_with_grad`` against every source, plus the drift's
+    gradient. Returns a host array (n, nrhs * d)."""
+    from ferreus_rbf_tpu_torch.ops import polynomials
+    from ferreus_rbf_tpu_torch.ops.kernels import make_kernel
+
+    kernel = make_kernel(rbfi.interpolant_settings.kernel_params())
+    src = torch.as_tensor(rbfi.points, device=dev)
+    coef = torch.as_tensor(rbfi.coefficients.point_coefficients, device=dev)
+    tg = torch.as_tensor(targets, device=dev)
+    out = []
+    for c0 in range(0, tg.shape[0], chunk):
+        _, gmat = kernel.pair_with_grad(tg[c0 : c0 + chunk], src)
+        out.append(torch.einsum("mnd,nr->mrd", gmat, coef).flatten(1))
+    grads = torch.cat(out).cpu().numpy()
+    settings = rbfi.interpolant_settings
+    if settings.basis_size != 0:
+        grads = grads + polynomials.evaluate_monomial_gradients(
+            targets, rbfi.coefficients.poly_coefficients, settings.polynomial_degree,
+            rbfi.translation_factor, rbfi.scale_factor)
+    return grads
+
+
+def kernel_entry(name, launches, m):
+    return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": launches, "max_abs_err": m["abs"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None}
 
 
 def phase_albatite(frt, nf, timing, dev):
+    """The fit path. Returns the fit, the dataset's extents and span, and
+    the H1/H2/H3 kernel-line entries (launches of H3 are filled in by the
+    isosurface phase)."""
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
 
     pts, vals = frt.csv_to_point_arrays(
@@ -223,6 +383,7 @@ def phase_albatite(frt, nf, timing, dev):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     timing.disable_global_tracer()
+    fit_launches = dict(nf.LAUNCHES)
     t0 = time.perf_counter()
     pred = rbfi.evaluate_at_source(add_nugget=True)
     eval_s = time.perf_counter() - t0
@@ -232,7 +393,17 @@ def phase_albatite(frt, nf, timing, dev):
     grid_vals = rbfi.evaluate(grid)
     grid_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(nf.LAUNCHES)
+    grad_tracer = timing.enable_global_tracer()
+    t0 = time.perf_counter()
+    gv, gg = rbfi.evaluate_with_gradients(grid)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    timing.disable_global_tracer()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches = dict(nf.LAUNCHES)
+    grad_launches = {k: launches[k] - before[k] for k in launches}
 
     done = [e for e in tracer.events if e["event"] == "solve_done"]
     solver_res = done[-1]["residual"]
@@ -244,36 +415,167 @@ def phase_albatite(frt, nf, timing, dev):
     log(f"phase 4: fit stages (s) {json.dumps(stages)}")
     log(f"phase 4: evaluate_at_source {eval_s:.3f} s, max residual / max|vals| {rel:.3e} "
         f"(bound 1e-4); 64^3 grid evaluate {grid_s:.3f} s")
-    log(f"phase 4: launches {json.dumps(launches)}")
     if not solver_res <= 1e-6:
         raise AssertionError(f"solver residual {solver_res:.3e}")
     if not rel < 1e-4:
         raise AssertionError(f"source residual {rel:.3e}")
     if grid_vals.shape != (64**3,) or not np.isfinite(grid_vals).all():
         raise AssertionError("grid values not finite or of the wrong shape")
+
+    sub = np.sort(np.random.default_rng(4).choice(grid.shape[0], 1024, replace=False))
+    dense = dense_gradients(rbfi, grid[sub], dev)
+    val_err = rel_err(torch.as_tensor(gv), torch.as_tensor(grid_vals))
+    grad_err = float(np.max(np.abs(gg[sub] - dense))) / float(np.max(np.abs(dense)))
+    log(f"phase 4: 64^3 grid evaluate_with_gradients {grad_s:.3f} s "
+        f"({grid.shape[0] / grad_s:.6g} pts/s, {grad_s / grid_s:.3f}x value-only), "
+        f"peak device memory {peak_gb:.3f} GB; values vs evaluate {val_err:.3e} "
+        f"(bound 1e-12); gradients vs dense f64 on 1,024 grid points {grad_err:.3e} "
+        f"of max |grad| (bound {ALBATITE_GRAD_BOUND:.0e})")
+    log(f"phase 4: 64^3 evaluate_with_gradients stages (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in grad_tracer.totals.items()})}")
+    log(f"phase 4: launches: fit {json.dumps(fit_launches)}; 64^3 evaluate_with_gradients "
+        f"{json.dumps(grad_launches)}; whole phase {json.dumps(launches)}")
+    if gg.shape != (64**3, 3) or not np.isfinite(gg).all():
+        raise AssertionError("grid gradients not finite or of the wrong shape")
+    if not (val_err <= 1e-12 and grad_err <= ALBATITE_GRAD_BOUND):
+        raise AssertionError(f"albatite gradients: values {val_err:.3e}, grads {grad_err:.3e}")
     if not all(launches[name] > 0 for name in nf.LAUNCHES):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
 
-    # kernel vs plain at the fit's own shapes (nrhs 1): its "__all__" tree
+    # kernel vs plain at the fit's own shapes (nrhs 1): its "__all__" tree;
+    # the sources are also the seed projection's first gradient targets
     params = rbfi.params
     tree = FmmTree(rbfi.points, params.fmm_params.interpolation_order,
                    settings.kernel_params(), adaptive_tree=True, sparse=True,
                    params=params.fmm_params, device=dev)
     tree.prepare_targets(rbfi.points, "__all__")
     g = torch.Generator(device="cpu").manual_seed(2)
-    entries = []
-    for name, dtype in (("near_field_f32", torch.float32), ("near_field_f64", torch.float64)):
+    entries = {}
+    for name, dtype, grad in (("near_field_f32", torch.float32, False),
+                              ("near_field_f64", torch.float64, False),
+                              ("near_field_grad_f64", torch.float64, True)):
         r = time_near_field(nf, tree, tree._target_cache["__all__"], dtype,
-                            settings.kernel_params(), 1, g)
-        for part, m in r.items():
-            log(f"phase 4: albatite {part} {name} shapes {m['shape']}: kernel "
-                f"{m['ms']:.4f} ms ({m['gpairs_s']:.1f} Gpair/s), plain {m['plain_ms']:.4f} ms, "
-                f"rel err {m['rel']:.3e}")
-        m = r["p2p"]
-        entries.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                        "replaces": REPLACES[name], "launches": launches[name],
-                        "max_abs_err": m["abs"], "ms": m["ms"], "plain_ms": m["plain_ms"]})
-    return entries
+                            settings.kernel_params(), 1, g, grad=grad)
+        log_near_field("phase 4: albatite", name, r)
+        entries[name] = kernel_entry(name, launches[name], r["p2p"])
+    return rbfi, pts, span, entries
+
+
+def phase_config2_gradients(nf, dev):
+    """The JAX bench's gradient cell: 100k uniform points, Spheroidal5,
+    p = 5, 2 RHS, adaptive sparse tree, gradients at the sources."""
+    from ferreus_rbf_tpu_torch.ops.dense import dense_matvec
+    from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
+    from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType, make_kernel
+
+    n, p = 100_000, 5
+    rng = np.random.default_rng(7)
+    pts = rng.random((n, 3))
+    w = rng.standard_normal((n, 2))
+    kp = KernelParams(KernelType.Spheroidal5Rbf, base_range=1.2, total_sill=0.9)
+    nf.reset_launches()
+    t0 = time.perf_counter()
+    tree = FmmTree(pts, p, kp, adaptive_tree=True, sparse=True, device=dev)
+    tree.set_weights(w)
+    torch.cuda.synchronize()
+    log(f"phase 5: config-2 gradient tree {time.perf_counter() - t0:.2f} s "
+        f"(leaves {tree.nsl}, smax {tree.smax}, depth {tree.tree.depth}, "
+        f"w-list tiles {tree._m2p_nw})")
+    vg = tree.evaluate_with_gradients(w, pts, reuse_key="src")  # warm
+    grad_s = synced_median(lambda: tree.evaluate_with_gradients(w, pts, reuse_key="src"))
+    tree.evaluate(w, pts, reuse_key="src")  # warm
+    val_s = synced_median(lambda: tree.evaluate(w, pts, reuse_key="src"))
+    launches = dict(nf.LAUNCHES)
+
+    idx = np.sort(rng.choice(n, 1024, replace=False))
+    kernel = make_kernel(kp)
+    src = torch.as_tensor(pts, device=dev)
+    wd = torch.as_tensor(w, device=dev)
+    want_v = dense_matvec(kernel, src[idx], src, wd).cpu().numpy()
+    want_g = torch.cat([
+        torch.einsum("mnd,nr->mrd", kernel.pair_with_grad(src[idx[c : c + 256]], src)[1],
+                     wd).flatten(1)
+        for c in range(0, 1024, 256)]).cpu().numpy()
+    v_err = float(np.max(np.abs(vg[0][idx] - want_v)) / np.max(np.abs(want_v)))
+    g_err = float(np.max(np.abs(vg[1][idx] - want_g)) / np.max(np.abs(want_g)))
+    log(f"phase 5: config-2 evaluate_with_gradients median {grad_s * 1e3:.3f} ms "
+        f"({n / grad_s:.6g} pts/s); value-only evaluate {val_s * 1e3:.3f} ms "
+        f"({n / val_s:.6g} pts/s); ratio {grad_s / val_s:.3f}")
+    log(f"phase 5: vs dense f64 oracle on 1,024 targets: values {v_err:.3e} "
+        f"(bound {CONFIG2_BOUND:.0e}), gradients {g_err:.3e} (bound {CONFIG2_GRAD_BOUND:.0e})")
+    log(f"phase 5: launches {json.dumps(launches)}")
+    if vg[1].shape != (n, 6) or not np.isfinite(vg[1]).all():
+        raise AssertionError("config-2 gradients not finite or of the wrong shape")
+    if not (v_err < CONFIG2_BOUND and g_err < CONFIG2_GRAD_BOUND):
+        raise AssertionError(f"config-2 gradients: values {v_err:.3e}, grads {g_err:.3e}")
+    if not launches["near_field_grad_f64"] > 0:
+        raise AssertionError(f"H3 never launched in phase 5: {launches}")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    r = time_near_field(nf, tree, tree._target_cache["src"], torch.float64, kp, 2, g,
+                        grad=True)
+    log_near_field("phase 5: config-2 nrhs 2", "near_field_grad_f64", r)
+
+
+def phase_isosurface(frt, nf, timing, rbfi, pts, span):
+    """The isosurface path: RMT on the albatite fit at span/100."""
+    extents = np.concatenate([pts.min(axis=0), pts.max(axis=0)])
+    resolution = span / 100.0
+    calls = {"lattice_calls": 0, "lattice_points": 0, "lattice_s": 0.0,
+             "gradient_calls": 0, "gradient_points": 0, "gradient_s": 0.0}
+
+    def counted(fn, key):
+        def wrapper(targets):
+            calls[f"{key}_calls"] += 1
+            calls[f"{key}_points"] += len(targets)
+            t0 = time.perf_counter()
+            out = fn(targets)  # host arrays: the device work has finished
+            calls[f"{key}_s"] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    build = rbfi.build_evaluator
+
+    def timed_build(*args):
+        t0 = time.perf_counter()
+        build(*args)
+        torch.cuda.synchronize()
+        calls["build_evaluator_s"] = time.perf_counter() - t0
+
+    rbfi.build_evaluator = timed_build
+
+    rbfi.evaluate_targets = counted(rbfi.evaluate_targets, "lattice")
+    rbfi.evaluate_targets_with_gradients = counted(
+        rbfi.evaluate_targets_with_gradients, "gradient")
+    torch.cuda.synchronize()
+    nf.reset_launches()
+    tracer = timing.enable_global_tracer()
+    t0 = time.perf_counter()
+    mesh = rbfi.build_isosurface(extents, resolution, 0.0, frt.BoundaryClosure.None_)
+    torch.cuda.synchronize()
+    iso_s = time.perf_counter() - t0
+    timing.disable_global_tracer()
+    launches = dict(nf.LAUNCHES)
+    del rbfi.evaluate_targets, rbfi.evaluate_targets_with_gradients, rbfi.build_evaluator
+    calls = {k: round(v, 3) if isinstance(v, float) else v for k, v in calls.items()}
+
+    verts, facets = mesh.vertices, mesh.facets
+    pad = resolution * 10.0
+    inside = bool(np.all(verts >= extents[:3] - pad) and np.all(verts <= extents[3:] + pad))
+    edges = np.sort(facets[:, [0, 1, 1, 2, 2, 0]].reshape(-1, 2), axis=1)
+    _, uses = np.unique(edges, axis=0, return_counts=True)
+    log(f"phase 6: albatite isosurface at span/100 ({resolution:.6g}) {iso_s:.3f} s: "
+        f"{mesh.num_vertices} vertices, {mesh.num_facets} facets; {json.dumps(calls)}; "
+        f"max facets per edge {int(uses.max()) if uses.size else 0}, "
+        f"boundary edges {int((uses == 1).sum())}")
+    log(f"phase 6: stages (s) {json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
+    log(f"phase 6: launches {json.dumps(launches)}")
+    if mesh.num_facets == 0 or not np.isfinite(verts).all() or not inside:
+        raise AssertionError("isosurface empty, not finite, or outside the padded extents")
+    if uses.max() > 2:
+        raise AssertionError("an edge is used by more than two facets")
+    if not (launches["near_field_f64"] > 0 and launches["near_field_grad_f64"] > 0):
+        raise AssertionError(f"H2 or H3 never launched in phase 6: {launches}")
+    return launches
 
 
 def main():
@@ -297,15 +599,21 @@ def main():
     nf.build()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
         f"({nf.BUILD_INFO['path']})")
+    entry = "?"
     for line in nf.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"phase 1: ptxas {line.strip()}")
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            log(f"phase 1: ptxas {entry}: {line.strip()}")
 
     phase_kernels(nf, kt_mod, dev)
     phase_config2(frt, nf, dev)
-    entries = phase_albatite(frt, nf, timing, dev)
+    rbfi, pts, span, entries = phase_albatite(frt, nf, timing, dev)
+    phase_config2_gradients(nf, dev)
+    iso_launches = phase_isosurface(frt, nf, timing, rbfi, pts, span)
+    entries["near_field_grad_f64"]["launches"] = iso_launches["near_field_grad_f64"]
 
-    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 
 The port of ``ferreus_rbf_tpu`` (JAX/Pallas) to PyTorch, with hand-written
 CUDA kernels for the FMM near field on NVIDIA Hopper. Module paths mirror
-the JAX package's. The slice ported so far is the iterative fit (BBFMM
+the JAX package's. The slices ported so far are the iterative fit (BBFMM
 matvecs, FGMRES with multilevel Schwarz preconditioning, mixed-precision
-refinement) and evaluation; pass ``device="cuda"`` to run it on the card.
+refinement), evaluation with and without gradients, the leaf-only
+evaluator and RMT isosurfacing. Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``.
 """
 
 import torch as _torch
@@ -25,6 +27,7 @@ from .interpolant_config import (  # noqa: E402
     SpheroidalOrder,
     get_min_drift,
 )
+from .isosurfacing import BoundaryClosure, ClusterMethod, Mesh  # noqa: E402
 from .models.rbf import Coefficients, RBFInterpolator  # noqa: E402
 from .models.test_functions import RBFTestFunctions  # noqa: E402
 from .progress import Progress, ProgressMsg, closure_sink  # noqa: E402
@@ -37,6 +40,8 @@ from .utils.common import (  # noqa: E402
 )
 
 __all__ = [
+    "BoundaryClosure",
+    "ClusterMethod",
     "Coefficients",
     "DDMParams",
     "Drift",
@@ -45,6 +50,7 @@ __all__ = [
     "FmmCompressionType",
     "FmmParams",
     "InterpolantSettings",
+    "Mesh",
     "Params",
     "Progress",
     "ProgressMsg",

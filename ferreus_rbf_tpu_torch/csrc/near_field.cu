@@ -1,16 +1,20 @@
 // Near field of the FMM (P2P over u-lists, M2P over w-lists, and P2L over
 // x-lists with a cell's Chebyshev nodes as the targets) for Hopper
-// (sm_90a), in f32 (H1, near_field_f32) and native f64 (H2, near_field_f64).
+// (sm_90a), in f32 (H1, near_field_f32) and native f64 (H2, near_field_f64),
+// and its target gradients in native f64 (H3, near_field_grad_f64).
 //
 // Computes, for every target-bucket row r and target slot t,
 //     out[r, t, k] = sum_{u < n(r)} sum_s phi(|x[r,t] - y[nbr[u,r], s]|^2) * w[nbr[u,r], k, s]
 // with n(r) = cnt[r] when counts are given and U otherwise. Neighbour
 // entries equal to the sentinel tile (the last tile, L) are skipped: its
-// weights are zero by construction.
+// weights are zero by construction. H3 also computes
+//     gout[r, t, k, i] = sum_{u, s} g(r2) * (x[r,t,i] - y[l,i,s]) * w[l, k, s],
+// grad phi at displacement x - y being (x - y) * g(|x - y|^2).
 //
 // Replaces the Pallas TPU kernels in ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:
 //   H1: p2p_leaf_slab (:595), p2p_leaf_pairs (:102), p2p_leaf_fused (:448);
-//   H2: p2p_leaf_pairs_df64 (:651), p2p_pairlist_df64 (:698).
+//   H2: p2p_leaf_pairs_df64 (:651), p2p_pairlist_df64 (:698);
+//   H3: p2p_pairlist_df64_grad (:779).
 // The Pallas variants differ only in how they work around VMEM, SMEM and
 // the MXU (slab gathers, (R, U) grids, sorted pair lists, double-float
 // split dots); on Hopper one count-aware neighbour loop per precision
@@ -26,8 +30,13 @@
 // matvec (100k points, 8 RHS: ~6 MB in f32, ~11 MB in f64) fit in the
 // 50 MB L2, so device-memory traffic is not the limit.
 //
+// H3 does the same pair loop with phi and g from one shared sqrt (or log)
+// per pair and (1 + d) * NR FMAs instead of NR: it is bound by the FP64
+// pipe and the f64 sqrt/divide sequences, like H2, at ~4x H2's FMAs.
+//
 // Design: one block per (row, 128-target chunk, rhs block). Each thread
-// owns one target and keeps its NR right-hand-side sums in registers. The
+// owns one target and keeps its NR right-hand-side sums in registers
+// (H3: NR values and 3 * NR gradient sums, 32 f64 accumulators at NR = 8). The
 // block walks the row's neighbour list; for each neighbour tile it stages
 // 128 sources at a time (coordinates and weights) through shared memory,
 // and every thread reads them as broadcasts. No atomics, no cross-block
@@ -44,6 +53,7 @@ struct KernelArgs {
   int code;          // KernelType index (ops/kernels.py KERNEL_CODES)
   int pw;            // spheroidal power
   double s2, ip2, near_slope, far_coef, total_sill;
+  double far_grad;   // spheroidal far-branch gradient numerator (H3)
 };
 
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
@@ -82,6 +92,72 @@ __device__ __forceinline__ T phi(T r2, const KernelArgs& k) {
       return r2 > eps ? T(1) / (r2 * r2) : T(0);
   }
   return T(0);
+}
+
+// phi(r2) and the gradient factor g(r2) (grad phi = (x - y) * g) in f64,
+// sharing one sqrt or log; same formulas and r2 <= eps guards as
+// ops/kernels.py (every g is 0 at coincident points).
+__device__ __forceinline__ void phi_gscale(double r2, const KernelArgs& k, double& f,
+                                           double& g) {
+  const double eps = 2.220446049250313e-16;
+  const bool live = r2 > eps;
+  const double r2p = r2 > 0.0 ? r2 : 0.0;
+  const double rs = live ? r2 : 1.0;  // masked lanes never make inf or NaN
+  switch (k.code) {
+    case 0: {  // LinearRbf
+      const double r = sqrt(r2p);
+      f = -r;
+      g = live ? -1.0 / r : 0.0;
+      return;
+    }
+    case 1: {  // ThinPlateSplineRbf
+      const double lg = 0.5 * log(rs);
+      f = live ? r2 * lg : 0.0;
+      g = live ? 2.0 * lg + 1.0 : 0.0;
+      return;
+    }
+    case 2: {  // CubicRbf
+      const double r = sqrt(r2p);
+      f = r2 * r;
+      g = live ? 3.0 * r : 0.0;
+      return;
+    }
+    case 3:
+    case 4:
+    case 5:
+    case 6: {  // Spheroidal{3,5,7,9}Rbf
+      const double sr2 = k.s2 * r2;
+      if (sr2 <= k.ip2) {
+        const double r = sqrt(r2p);
+        f = k.total_sill - k.near_slope * r;
+        g = live ? -k.near_slope / r : 0.0;
+        return;
+      }
+      const double t = 1.0 + sr2;
+      double tp = t;
+      for (int i = 1; i < k.pw; ++i) tp *= t;
+      const double den = tp * sqrt(t);
+      f = k.far_coef / den;
+      g = live ? k.far_grad / (den * t) : 0.0;
+      return;
+    }
+    case 7: {  // Laplacian
+      const double r = sqrt(rs);
+      f = live ? 1.0 / r : 0.0;
+      g = live ? -1.0 / (rs * r) : 0.0;
+      return;
+    }
+    case 8:  // OneOverR2
+      f = live ? 1.0 / rs : 0.0;
+      g = live ? -2.0 / (rs * rs) : 0.0;
+      return;
+    case 9:  // OneOverR4
+      f = live ? 1.0 / (rs * rs) : 0.0;
+      g = live ? -4.0 / (rs * rs * rs) : 0.0;
+      return;
+  }
+  f = 0.0;
+  g = 0.0;
 }
 
 template <typename T, int NR>
@@ -151,6 +227,104 @@ near_field_kernel(const T* __restrict__ tgt,    // (R, Tn, d)
   }
 }
 
+// H3: values and target gradients, f64. Same block layout and staging as
+// near_field_kernel; the d gradient sums ride beside the value sums.
+template <int NR>
+__global__ void __launch_bounds__(kBlock)
+near_field_grad_kernel(const double* __restrict__ tgt,  // (R, Tn, d)
+                       const double* __restrict__ src,  // (L + 1, ds, S)
+                       const double* __restrict__ w,    // (L + 1, nrhs, S)
+                       const int* __restrict__ nbr,     // (U, R)
+                       const int* __restrict__ cnt,     // (R,) or null
+                       double* __restrict__ out,        // (R, Tn, nrhs)
+                       double* __restrict__ gout,       // (R, Tn, nrhs, d)
+                       int R, int Tn, int d, int ds, int S, int L, int U, int nrhs,
+                       KernelArgs k) {
+  __shared__ double s_y[3][kBlock];
+  __shared__ double s_w[NR][kBlock];
+
+  const int r = blockIdx.x;
+  const int t = blockIdx.y * kBlock + threadIdx.x;
+  const int rhs0 = blockIdx.z * NR;
+  const bool live = t < Tn;
+
+  double x[3] = {0.0, 0.0, 0.0};
+  if (live) {
+    const double* tp = tgt + ((size_t)r * Tn + t) * d;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < d) x[i] = tp[i];
+  }
+  double acc[NR];
+  double gacc[NR][3];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    acc[q] = 0.0;
+    gacc[q][0] = gacc[q][1] = gacc[q][2] = 0.0;
+  }
+
+  const int nu = cnt ? min(cnt[r], U) : U;
+  for (int u = 0; u < nu; ++u) {
+    const int l = nbr[(size_t)u * R + r];  // block-uniform
+    if (l == L) continue;
+    const double* sp = src + (size_t)l * ds * S;
+    const double* wp = w + ((size_t)l * nrhs + rhs0) * S;
+    for (int s0 = 0; s0 < S; s0 += kBlock) {
+      const int j = s0 + threadIdx.x;
+      const bool in = j < S;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        s_y[i][threadIdx.x] = (in && i < d) ? sp[(size_t)i * S + j] : 0.0;
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        s_w[q][threadIdx.x] = (in && rhs0 + q < nrhs) ? wp[(size_t)q * S + j] : 0.0;
+      __syncthreads();
+      const int n = min(kBlock, S - s0);
+      if (live) {
+        for (int jj = 0; jj < n; ++jj) {
+          const double dx = x[0] - s_y[0][jj];
+          const double dy = x[1] - s_y[1][jj];
+          const double dz = x[2] - s_y[2][jj];
+          double f, g;
+          phi_gscale(dx * dx + dy * dy + dz * dz, k, f, g);
+          const double gx = g * dx, gy = g * dy, gz = g * dz;
+#pragma unroll
+          for (int q = 0; q < NR; ++q) {
+            const double wq = s_w[q][jj];
+            acc[q] += f * wq;
+            gacc[q][0] += gx * wq;
+            gacc[q][1] += gy * wq;
+            gacc[q][2] += gz * wq;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (live) {
+    const size_t o = ((size_t)r * Tn + t) * nrhs + rhs0;
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      if (rhs0 + q < nrhs) {
+        out[o + q] = acc[q];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          if (i < d) gout[(o + q) * d + i] = gacc[q][i];
+      }
+    }
+  }
+}
+
+template <int NR>
+void launch_grad_nr(const double* tgt, const double* src, const double* w, const int* nbr,
+                    const int* cnt, double* out, double* gout, int R, int Tn, int d, int ds,
+                    int S, int L1, int U, int nrhs, const KernelArgs& k,
+                    cudaStream_t stream) {
+  const dim3 grid(R, (Tn + kBlock - 1) / kBlock, (nrhs + NR - 1) / NR);
+  near_field_grad_kernel<NR><<<grid, kBlock, 0, stream>>>(
+      tgt, src, w, nbr, cnt, out, gout, R, Tn, d, ds, S, L1 - 1, U, nrhs, k);
+}
+
 template <typename T, int NR>
 void launch_nr(const T* tgt, const T* src, const T* w, const int* nbr, const int* cnt,
                T* out, int R, int Tn, int d, int ds, int S, int L1, int U, int nrhs,
@@ -167,7 +341,7 @@ int launch(const T* tgt, const T* src, const T* w, const int* nbr, const int* cn
            int pw, void* stream) {
   cudaGetLastError();  // clear a stale error so the return reports this launch
   if (R == 0 || Tn == 0 || nrhs == 0) return 0;
-  const KernelArgs k{code, pw, s2, ip2, near_slope, far_coef, total_sill};
+  const KernelArgs k{code, pw, s2, ip2, near_slope, far_coef, total_sill, 0.0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nrhs == 1)
     launch_nr<T, 1>(tgt, src, w, nbr, cnt, out, R, Tn, d, ds, S, L1, U, nrhs, k, st);
@@ -177,6 +351,25 @@ int launch(const T* tgt, const T* src, const T* w, const int* nbr, const int* cn
     launch_nr<T, 4>(tgt, src, w, nbr, cnt, out, R, Tn, d, ds, S, L1, U, nrhs, k, st);
   else
     launch_nr<T, 8>(tgt, src, w, nbr, cnt, out, R, Tn, d, ds, S, L1, U, nrhs, k, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_grad(const double* tgt, const double* src, const double* w, const int* nbr,
+                const int* cnt, double* out, double* gout, int R, int Tn, int d, int ds, int S,
+                int L1, int U, int nrhs, int code, double s2, double ip2, double near_slope,
+                double far_coef, double total_sill, double far_grad, int pw, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return reports this launch
+  if (R == 0 || Tn == 0 || nrhs == 0) return 0;
+  const KernelArgs k{code, pw, s2, ip2, near_slope, far_coef, total_sill, far_grad};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nrhs == 1)
+    launch_grad_nr<1>(tgt, src, w, nbr, cnt, out, gout, R, Tn, d, ds, S, L1, U, nrhs, k, st);
+  else if (nrhs == 2)
+    launch_grad_nr<2>(tgt, src, w, nbr, cnt, out, gout, R, Tn, d, ds, S, L1, U, nrhs, k, st);
+  else if (nrhs <= 4)
+    launch_grad_nr<4>(tgt, src, w, nbr, cnt, out, gout, R, Tn, d, ds, S, L1, U, nrhs, k, st);
+  else
+    launch_grad_nr<8>(tgt, src, w, nbr, cnt, out, gout, R, Tn, d, ds, S, L1, U, nrhs, k, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,6 +391,15 @@ int near_field_f64(const double* tgt, const double* src, const double* w, const 
                    double far_coef, double total_sill, int pw, void* stream) {
   return launch<double>(tgt, src, w, nbr, cnt, out, R, Tn, d, ds, S, L1, U, nrhs, code, s2,
                         ip2, near_slope, far_coef, total_sill, pw, stream);
+}
+
+int near_field_grad_f64(const double* tgt, const double* src, const double* w, const int* nbr,
+                        const int* cnt, double* out, double* gout, int R, int Tn, int d,
+                        int ds, int S, int L1, int U, int nrhs, int code, double s2,
+                        double ip2, double near_slope, double far_coef, double total_sill,
+                        double far_grad, int pw, void* stream) {
+  return launch_grad(tgt, src, w, nbr, cnt, out, gout, R, Tn, d, ds, S, L1, U, nrhs, code, s2,
+                     ip2, near_slope, far_coef, total_sill, far_grad, pw, stream);
 }
 
 const char* near_field_error_string(int code) {

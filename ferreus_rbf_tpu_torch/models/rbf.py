@@ -9,8 +9,12 @@ Port of ``ferreus_rbf_tpu/models/rbf.py``. The fit pipeline is:
    matvecs on ``device``.
 
 Evaluation builds an FMM tree on ``device`` over the union of source and
-target extents. Global trends, gradients, isosurfacing and model I/O are
-not ported yet (ROADMAP.md, queue A) and raise ``NotImplementedError``.
+target extents, with or without target gradients; ``build_evaluator``
+keeps one tree with its locals for the leaf-only ``evaluate_targets*``
+calls, and ``build_isosurface(s)`` runs regularised marching tetrahedra
+(``rmt``) against it. ``device`` defaults to the CUDA card; pass
+``device="cpu"`` to run on the CPU. Global trends and model I/O are not
+ported yet (ROADMAP.md, queue A) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from ..config import Params
 from ..interpolant_config import InterpolantSettings
 from ..ops import kernels as kernels_mod
 from ..ops import polynomials
-from ..ops.fmm.api import FmmTree
+from ..ops.fmm.api import FmmTree, resolve_device
 from ..progress import DuplicatesRemoved, Message, Progress
 from ..solver.domain import Coefficients, Domain
 from ..utils import common
@@ -92,7 +96,8 @@ class RBFInterpolator:
     """Radial basis function interpolator (fitted on construction).
 
     ``device`` names the torch device the iterative fit and the FMM
-    evaluations run on.
+    evaluations run on; by default the CUDA card (without one, pass
+    ``device="cpu"``).
     """
 
     def __init__(
@@ -103,11 +108,12 @@ class RBFInterpolator:
         params: Optional[Params] = None,
         global_trend=None,
         progress_callback: Optional[Progress] = None,
-        device="cpu",
+        device=None,
         _skip_solve: bool = False,
     ):
         if global_trend is not None:
             _not_ported("global_trend", "global trends")
+        device = resolve_device(device)
         solver_start = time.perf_counter()
         points = np.asarray(points, np.float64)
         values = np.asarray(values, np.float64)
@@ -139,6 +145,7 @@ class RBFInterpolator:
         self.coefficients = Coefficients(np.zeros((0, values.shape[1])))
         self.translation_factor = np.zeros(0)
         self.scale_factor = np.ones(0)
+        self._evaluator = None
 
         if not _skip_solve:
             self._setup_and_solve()
@@ -168,7 +175,7 @@ class RBFInterpolator:
         translation_factor,
         scale_factor,
         params: Optional[Params] = None,
-        device="cpu",
+        device=None,
     ) -> "RBFInterpolator":
         """A fitted interpolator from another fit's arrays, without solving
         (for example the JAX package's ``points``, ``coefficients`` and
@@ -226,45 +233,112 @@ class RBFInterpolator:
             device=self.device,
         )
 
-    def _evaluate(self, tree: FmmTree, targets, add_nugget: bool):
-        """FMM values + nugget + polynomial drift."""
-        targets = np.asarray(targets, np.float64)
+    def _evaluator_union_extents(self, target_points=None, target_extents=None) -> np.ndarray:
+        source_extents = common.get_pointarray_extents(self.points)
+        if target_points is not None:
+            return common.union_extents(
+                source_extents, common.get_pointarray_extents(np.asarray(target_points, np.float64)))
+        if target_extents is not None:
+            return common.union_extents(source_extents, target_extents)
+        return source_extents
+
+    def _evaluate(self, tree: FmmTree, target_points, evaluate_gradients: bool,
+                  add_nugget: bool, leaves_mode: bool):
+        """FMM values (and gradients) + nugget + polynomial drift (and its
+        gradient). Gradients come back (n, nrhs * d)."""
+        targets = np.asarray(target_points, np.float64)
         weights = self.coefficients.point_coefficients
-        tree.set_weights(weights)
-        values = tree.evaluate(weights, targets)
+        gradients = None
+        if evaluate_gradients:
+            fn = tree.evaluate_leaves_with_gradients if leaves_mode else tree.evaluate_with_gradients
+            values, gradients = fn(weights, targets)
+        else:
+            fn = tree.evaluate_leaves if leaves_mode else tree.evaluate
+            values = fn(weights, targets)
         if add_nugget:
             values = values + weights * self.interpolant_settings.nugget
         if self.interpolant_settings.basis_size != 0:
+            settings = self.interpolant_settings
             monomials = polynomials.evaluate_monomials(
-                targets,
-                self.interpolant_settings.polynomial_degree,
-                self.interpolant_settings.basis_size,
-                self.translation_factor,
-                self.scale_factor,
+                targets, settings.polynomial_degree, settings.basis_size,
+                self.translation_factor, self.scale_factor,
             )
             values = values + monomials @ self.coefficients.poly_coefficients
-        return _scalar_or_matrix(values)
+            if gradients is not None:
+                gradients = gradients + polynomials.evaluate_monomial_gradients(
+                    targets, self.coefficients.poly_coefficients, settings.polynomial_degree,
+                    self.translation_factor, self.scale_factor,
+                )
+        return _scalar_or_matrix(values), gradients
 
     def evaluate(self, target_points) -> np.ndarray:
         """One-shot evaluation over the union of source/target extents."""
-        extents = common.union_extents(
-            common.get_pointarray_extents(self.points),
-            common.get_pointarray_extents(np.asarray(target_points, np.float64)),
-        )
-        return self._evaluate(self._make_evaluator(sparse=False, extents=extents),
-                              target_points, False)
+        tree = self._make_evaluator(False, self._evaluator_union_extents(target_points))
+        tree.set_weights(self.coefficients.point_coefficients)
+        return self._evaluate(tree, target_points, False, False, leaves_mode=False)[0]
+
+    def evaluate_with_gradients(self, target_points):
+        """One-shot values and gradients ((n, nrhs * d)) over the union of
+        source/target extents."""
+        tree = self._make_evaluator(False, self._evaluator_union_extents(target_points))
+        tree.set_weights(self.coefficients.point_coefficients)
+        return self._evaluate(tree, target_points, True, False, leaves_mode=False)
 
     def evaluate_at_source(self, add_nugget: bool = False) -> np.ndarray:
         """Evaluate at the training sites (convergence diagnostics)."""
-        return self._evaluate(self._make_evaluator(sparse=True), self.points, add_nugget)
+        tree = self._make_evaluator(sparse=True)
+        tree.set_weights(self.coefficients.point_coefficients)
+        return self._evaluate(tree, self.points, False, add_nugget, leaves_mode=False)[0]
+
+    def build_evaluator(self, extents=None) -> None:
+        """Build and keep an evaluator (one full downward pass) for the
+        leaf-only ``evaluate_targets*`` calls."""
+        tree = self._make_evaluator(False, extents)
+        tree.set_weights(self.coefficients.point_coefficients)
+        tree.set_local_coefficients(self.coefficients.point_coefficients)
+        self._evaluator = tree
+
+    def evaluate_targets(self, target_points) -> np.ndarray:
+        """Leaf-only evaluation against the stored evaluator."""
+        if self._evaluator is None:
+            raise RuntimeError("call build_evaluator before evaluate_targets")
+        return self._evaluate(self._evaluator, target_points, False, False, leaves_mode=True)[0]
+
+    def evaluate_targets_with_gradients(self, target_points):
+        if self._evaluator is None:
+            raise RuntimeError("call build_evaluator before evaluate_targets_with_gradients")
+        return self._evaluate(self._evaluator, target_points, True, False, leaves_mode=True)
+
+    # ---------------------------------------------------------- isosurface
+    def build_isosurface(self, extents, resolution: float, isovalue: float,
+                         boundary_closure=None):
+        return self.build_isosurfaces(extents, resolution, [isovalue], boundary_closure)[0]
+
+    def build_isosurfaces(self, extents, resolution: float, isovalues, boundary_closure=None):
+        """Surface-following RMT extraction, one mesh per isovalue. The
+        evaluator spans the union of the source and ``extents`` boxes padded
+        by ten lattice steps; seeds are the source points."""
+        from ..isosurfacing import BoundaryClosure, ClusterMethod
+        from ..rmt.isosurface import build_isosurface as rmt_build
+
+        if boundary_closure is None:
+            boundary_closure = BoundaryClosure.None_
+        dims = self.points.shape[1]
+        if dims != 3:
+            raise ValueError("Only supported for 3D isosurfacing")
+        extents = np.asarray(extents, np.float64)
+        evaluator_extents = self._evaluator_union_extents(target_extents=extents)
+        evaluator_extents[:dims] -= resolution * 10.0
+        evaluator_extents[dims:] += resolution * 10.0
+        self.build_evaluator(evaluator_extents)
+        return [
+            rmt_build(self.points, extents, resolution, isovalue, self.evaluate_targets,
+                      self.evaluate_targets_with_gradients, ClusterMethod.CurvatureWeighted,
+                      boundary_closure, self.progress_callback)
+            for isovalue in isovalues
+        ]
 
     # ------------------------------------------------------ not ported yet
-    def evaluate_with_gradients(self, target_points):
-        _not_ported("evaluate_with_gradients", "gradients")
-
-    def build_isosurface(self, extents, resolution, isovalue, boundary_closure=None):
-        _not_ported("build_isosurface", "RMT and isosurfacing")
-
     def save_model(self, path):
         _not_ported("save_model", "model I/O")
 

@@ -16,6 +16,17 @@ moved to ``device`` as flat tensors. One matvec is
 
 ``precision="f32"`` runs every pass in float32 (the solver's inner
 matvec); ``"f64"`` runs every pass in float64. Results come back float64.
+
+Gradients with respect to the target coordinates (``evaluate_with_gradients``,
+``evaluate_leaves_with_gradients``) are float64 only, as in the JAX package:
+L2P against the anterpolation weights' derivatives, and P2P and M2P through
+:func:`near_field.near_field_grad`. Values come back (n, nrhs), gradients
+(n, nrhs * d), rhs-major and dim-minor. After :meth:`FmmTree.set_local_coefficients`
+(one full downward pass) the leaf-only ``evaluate_leaves*`` calls evaluate
+any target set without a downward pass.
+
+The tree's ``device`` defaults to the CUDA card; pass ``device="cpu"`` to
+run on the CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -27,12 +38,33 @@ from ...config import FmmCompressionType, FmmParams
 from ...utils.timing import traced_stage
 from ..kernels import Kernel, KernelParams, make_kernel
 from . import cheb, m2l, tree as tree_mod
-from .near_field import near_field
+from .near_field import near_field, near_field_grad
 from .tree import Octree, PointOutsideTreeError, calculate_tree_center_and_radius
 
-__all__ = ["FmmTree", "PointOutsideTreeError"]
+__all__ = ["FmmTree", "KernelDoesNotSupportGradientsError", "PointOutsideTreeError",
+           "resolve_device"]
 
 _PRECISIONS = {"f32": torch.float32, "f64": torch.float64}
+
+
+class KernelDoesNotSupportGradientsError(ValueError):
+    def __init__(self):
+        super().__init__(
+            "FMM evaluation failed: gradient evaluation requested but kernel "
+            "does not support gradients"
+        )
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    CUDA card. Without a card and with no device named this raises; it
+    never moves to the CPU silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available: pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def _next_pow2(n) -> int:
@@ -61,13 +93,13 @@ class FmmTree:
         sparse: bool = False,
         extents=None,
         params: FmmParams | None = None,
-        device="cpu",
+        device=None,
     ):
         pts = np.asarray(source_points, np.float64)
         if pts.ndim != 2 or pts.shape[1] not in (1, 2, 3):
             raise ValueError(f"Unsupported source point shape {pts.shape}")
         self._points = pts
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.p = int(interpolation_order)
         self.d = pts.shape[1]
         self.nnodes = self.p**self.d
@@ -98,6 +130,7 @@ class FmmTree:
         self._target_cache = {}
         self._weight_tiles = None
         self._multipole = None
+        self._local = None
 
     # ------------------------------------------------------------ operators
     def _build_operators(self):
@@ -340,12 +373,15 @@ class FmmTree:
         return self._floats32
 
     # ------------------------------------------------------------ targets
-    def _bin_targets(self, target_points, reuse_key=None):
+    def _bin_targets(self, target_points, reuse_key=None, with_grads=False):
         """Bucket targets by leaf into rows of width T; build the per-row
         u-list leaf-tile table, the w-list cell-tile table and the L2P
-        weights."""
+        weights (with their derivatives when ``with_grads``)."""
         if reuse_key is not None and reuse_key in self._target_cache:
-            return self._target_cache[reuse_key]
+            binned = self._target_cache[reuse_key]
+            if with_grads and "l2p_dw" not in binned:
+                binned["l2p_dw"] = self._l2p_weights(binned, True)[1]
+            return binned
 
         targets = np.asarray(target_points, np.float64)
         n = targets.shape[0]
@@ -413,25 +449,34 @@ class FmmTree:
         inv_flat = np.zeros(n, np.int64)
         inv_flat[tgt_idx[rr, ss]] = rr * tmax + ss
 
-        tpts = self._tensor((targets - self._world_center)[tgt_idx])  # (rows, T, d)
-        tcells_t = self._tensor(tcells, torch.int64)
-        f64 = self._floats64
-        l2p_w = cheb.anterpolation_weights_torch(
-            tpts, f64["cell_centers"][tcells_t], f64["cell_lengths"][tcells_t],
-            f64["nodes_t"], self.d,
-        )
         binned = {
             "ntargets": n,
-            "tcells": tcells_t,
+            "tcells": self._tensor(tcells, torch.int64),
             "nbr": self._tensor(nbr_tab.T),
             "wtab": wtab,
             "wcnt": wcnt,
             "inv_flat": self._tensor(inv_flat),
-            torch.float64: {"tpts": tpts, "l2p_w": l2p_w},
+            # (rows, T, d) target rows; pad slots repeat target 0
+            torch.float64: {"tpts": self._tensor((targets - self._world_center)[tgt_idx])},
         }
+        weights = self._l2p_weights(binned, with_grads)
+        if with_grads:
+            binned[torch.float64]["l2p_w"], binned["l2p_dw"] = weights
+        else:
+            binned[torch.float64]["l2p_w"] = weights
         if reuse_key is not None:
             self._target_cache[reuse_key] = binned
         return binned
+
+    def _l2p_weights(self, binned, with_grads):
+        """L2P anterpolation weights (rows, T, p^d) of a binned target set,
+        and with ``with_grads`` their derivatives (rows, T, d, p^d), f64."""
+        f64 = self._floats64
+        tc = binned["tcells"]
+        return cheb.anterpolation_weights_torch(
+            binned[torch.float64]["tpts"], f64["cell_centers"][tc], f64["cell_lengths"][tc],
+            f64["nodes_t"], self.d, with_gradients=with_grads,
+        )
 
     def _binned_floats(self, binned, dtype):
         if dtype not in binned:
@@ -495,11 +540,39 @@ class FmmTree:
         vals += near_field(bs["tpts"], fs["src_tiles"], wt, binned["nbr"],
                            kparams=self.kernel_params)
         if binned["wtab"] is not None:
-            mt = mult.new_zeros((self._m2p_nw + 1, nr, self.nnodes))
-            mt[:-1] = mult[self._dev["wtile_cells"]].transpose(1, 2)
-            vals += near_field(bs["tpts"], fs["node_tiles"], mt, binned["wtab"],
-                               binned["wcnt"], kparams=self.kernel_params)
+            vals += near_field(bs["tpts"], fs["node_tiles"], self._m2p_tiles(mult),
+                               binned["wtab"], binned["wcnt"], kparams=self.kernel_params)
         return vals.reshape(-1, nr)[binned["inv_flat"]]
+
+    def _leaf_with_grads(self, binned):
+        """f64 L2P + near field with target gradients against the kept
+        locals -> (n, nrhs) values and (n, nrhs * d) gradients."""
+        fs = self._floats64
+        tpts = binned[torch.float64]["tpts"]
+        rows, t, d = tpts.shape
+        nr = self._local.shape[2]
+        loc = self._local[binned["tcells"]]  # (rows, p^d, r)
+        vals = torch.bmm(binned[torch.float64]["l2p_w"], loc)
+        # einsum("ltdp,lpr->ltrd") as one bmm over (T*d) weight rows
+        grads = torch.bmm(binned["l2p_dw"].flatten(1, 2), loc).view(rows, t, d, nr)
+        grads = grads.transpose(2, 3).contiguous()
+        legs = [(fs["src_tiles"], self._weight_tiles, binned["nbr"], None)]
+        if binned["wtab"] is not None:
+            legs.append((fs["node_tiles"], self._m2p_tiles(self._multipole), binned["wtab"],
+                         binned["wcnt"]))
+        for src, w, nbr, cnt in legs:
+            v, g = near_field_grad(tpts, src, w, nbr, cnt, kparams=self.kernel_params)
+            vals += v
+            grads += g
+        inv = binned["inv_flat"]
+        return vals.reshape(-1, nr)[inv], grads.reshape(-1, nr * d)[inv]
+
+    def _m2p_tiles(self, mult):
+        """(nw + 1, nrhs, p^d) M2P weight tiles: each w-list cell's multipole
+        coefficients; the last tile is the zero sentinel."""
+        mt = mult.new_zeros((self._m2p_nw + 1, mult.shape[2], self.nnodes))
+        mt[:-1] = mult[self._dev["wtile_cells"]].transpose(1, 2)
+        return mt
 
     # ------------------------------------------------------------ public
     def _as_weights(self, weights):
@@ -511,6 +584,18 @@ class FmmTree:
         fs = self._floats64
         self._weight_tiles = self._weight_tiles_of(self._as_weights(weights), torch.float64)
         self._multipole = self._upward(self._weight_tiles, fs)
+        self._local = None
+
+    def set_local_coefficients(self, weights) -> None:
+        """Full-tree downward pass at f64, kept; enables ``evaluate_leaves``."""
+        if self._multipole is None:
+            self.set_weights(weights)
+        with traced_stage("fmm_downward"):
+            self._local = self._downward(self._multipole, self._weight_tiles, self._floats64)
+
+    def _check_gradients(self):
+        if not self.kernel_np.supports_gradients:
+            raise KernelDoesNotSupportGradientsError()
 
     def evaluate_device(self, weights_dev, reuse_key, precision: str = "f64"):
         """Full matvec at a prepared target set, device tensor in and out.
@@ -528,10 +613,34 @@ class FmmTree:
 
     def evaluate(self, weights, target_points, reuse_key=None) -> np.ndarray:
         """Downward + leaf pass at ``target_points`` (f64); host array out."""
-        if self._multipole is None:
-            self.set_weights(weights)
-        binned = self._bin_targets(target_points, reuse_key)
-        fs = self._floats64
-        local = self._downward(self._multipole, self._weight_tiles, fs)
-        vals = self._leaf(binned, torch.float64, fs, local, self._multipole, self._weight_tiles)
-        return vals.cpu().numpy()
+        self.set_local_coefficients(weights)
+        return self.evaluate_leaves(weights, target_points, reuse_key)
+
+    def evaluate_with_gradients(self, weights, target_points, reuse_key=None):
+        """Downward + leaf pass with target gradients (f64): host arrays
+        (n, nrhs) and (n, nrhs * d)."""
+        self._check_gradients()
+        self.set_local_coefficients(weights)
+        return self.evaluate_leaves_with_gradients(weights, target_points, reuse_key)
+
+    def evaluate_leaves(self, weights, target_points, reuse_key=None) -> np.ndarray:
+        """Leaf pass only, against the locals of the last downward pass
+        (:meth:`set_local_coefficients`)."""
+        if self._local is None:
+            raise RuntimeError("call set_local_coefficients before evaluate_leaves")
+        with traced_stage("fmm_bin_targets"):
+            binned = self._bin_targets(target_points, reuse_key)
+        with traced_stage("fmm_leaf"):
+            vals = self._leaf(binned, torch.float64, self._floats64, self._local,
+                              self._multipole, self._weight_tiles)
+            return vals.cpu().numpy()
+
+    def evaluate_leaves_with_gradients(self, weights, target_points, reuse_key=None):
+        self._check_gradients()
+        if self._local is None:
+            raise RuntimeError("call set_local_coefficients before evaluate_leaves")
+        with traced_stage("fmm_bin_targets"):
+            binned = self._bin_targets(target_points, reuse_key, with_grads=True)
+        with traced_stage("fmm_leaf_grad"):
+            vals, grads = self._leaf_with_grads(binned)
+            return vals.cpu().numpy(), grads.cpu().numpy()

@@ -176,23 +176,44 @@ def scale_nodes_to_cell(nodes_nd: np.ndarray, center, length, xp=np):
     return center[..., None, :] + (length[..., None, None] * 0.5) * nodes_nd
 
 
-def anterpolation_weights_torch(points, center, length, nodes_t, d: int):
-    """Tensor twin of :func:`anterpolation_weights` (values only).
+def anterpolation_weights_torch(points, center, length, nodes_t, d: int,
+                                with_gradients: bool = False):
+    """Tensor twin of :func:`anterpolation_weights`.
 
     ``points`` (..., n, d), ``center`` (..., d), ``length`` (...,) and
     ``nodes_t`` (p, p) are tensors on one device and of one dtype. Returns
-    W (..., n, p^d), node axes flattened row-major like the numpy version.
+    W (..., n, p^d), node axes flattened row-major like the numpy version;
+    with ``with_gradients`` the pair ``(W, dW)``, dW (..., n, d, p^d) in
+    physical coordinates (chain-rule factor 2/length).
     """
     p = nodes_t.shape[0]
     scaled = (points - center[..., None, :]) / (length[..., None, None] * 0.5)
-    w = None
+    s_dim, ds_dim = [], []
     for dim in range(d):
         x = scaled[..., dim]
         cols = [torch.ones_like(x)]
+        dcols = [torch.zeros_like(x)]
         if p > 1:
             cols.append(x)
+            dcols.append(torch.ones_like(x))
         for k in range(2, p):
             cols.append(2.0 * x * cols[k - 1] - cols[k - 2])
-        s = (2.0 * (torch.stack(cols, dim=-1) @ nodes_t.T) - 1.0) / p
-        w = s if w is None else (w[..., :, None] * s[..., None, :]).flatten(-2)
-    return w
+            if with_gradients:
+                dcols.append(2.0 * cols[k - 1] + 2.0 * x * dcols[k - 1] - dcols[k - 2])
+        s_dim.append((2.0 * (torch.stack(cols, dim=-1) @ nodes_t.T) - 1.0) / p)
+        if with_gradients:
+            ds = (2.0 / p) * (torch.stack(dcols, dim=-1) @ nodes_t.T)
+            ds_dim.append(ds * (2.0 / length)[..., None, None])
+
+    def outer(parts):
+        w = parts[0]
+        for part in parts[1:]:
+            w = (w[..., :, None] * part[..., None, :]).flatten(-2)
+        return w
+
+    w = outer(s_dim)
+    if not with_gradients:
+        return w
+    dw = torch.stack([outer([ds_dim[i] if i == g else s_dim[i] for i in range(d)])
+                      for g in range(d)], dim=-2)
+    return w, dw

@@ -1,7 +1,7 @@
 """Radial kernel functions phi(r), as closures over squared distance.
 
 Port of ``ferreus_rbf_tpu/ops/kernels.py`` (the registry of the ten
-reference kernels):
+reference kernels and their analytic gradients):
 
 * LinearRbf              phi(r) = -r
 * ThinPlateSplineRbf     phi(r) = r^2 ln r            (0 at r = 0)
@@ -17,8 +17,13 @@ closures (f64 by default, ``dtype=torch.float32`` for the solver's inner
 iterations) and ``make_kernel(params, xp=numpy)`` the host twin used by the
 setup-time operator builds. The card has native f64, so sqrt and reciprocal
 are the plain operations. ``r2 <= eps`` counts as coincident (TPS and the
-inverse powers give 0 there). The CUDA near field evaluates the same
-formulas (``csrc/near_field.cu``, ``phi``) from :func:`kernel_code`.
+inverse powers give 0 there, and every gradient factor is 0 there: the
+evaluation points may be the sources themselves). The CUDA near field
+evaluates the same formulas (``csrc/near_field.cu``, ``phi`` and
+``phi_gscale``) from :func:`kernel_code`.
+
+Gradients follow the reference convention: grad phi at displacement
+``d = t - s`` is ``d * grad_scale_r2(|d|^2)``.
 """
 
 from __future__ import annotations
@@ -115,10 +120,19 @@ class _TorchOps:
 
 
 class Kernel:
-    """A concrete kernel: vectorised ``phi_r2`` over squared distances."""
+    """A concrete kernel: vectorised ``phi_r2`` and gradient factor
+    ``grad_scale_r2`` over squared distances.
 
-    def __init__(self, phi_r2: Callable, xp, dtype):
+    ``supports_gradients`` mirrors the reference's optional gradient
+    evaluation: all ten registry kernels support it; ``FmmTree`` raises
+    ``KernelDoesNotSupportGradientsError`` for a kernel that does not.
+    """
+
+    supports_gradients = True
+
+    def __init__(self, phi_r2: Callable, grad_scale_r2: Callable, xp, dtype):
         self.phi_r2 = phi_r2
+        self.grad_scale_r2 = grad_scale_r2
         self.xp = xp
         self.dtype = dtype
 
@@ -142,47 +156,93 @@ class Kernel:
         """Dense kernel block K[..., i, j] = phi(|t_i - s_j|)."""
         return self.phi_r2(self.pair_r2(targets, sources))
 
+    def pair_with_grad(self, targets, sources):
+        """``(K, G)``: ``K[..., i, j] = phi(|t_i - s_j|)`` and
+        ``G[..., i, j, k] = d/dt_k phi(t_i - s_j)``."""
+        t = self._as(targets)
+        s = self._as(sources)
+        diff = t[..., :, None, :] - s[..., None, :, :]
+        r2 = (diff * diff).sum(-1)
+        return self.phi_r2(r2), diff * self.grad_scale_r2(r2)[..., None]
+
+
+def _guard(ops, r2, fn):
+    """fn(r2) where r2 > eps (coincident points), else 0; masked lanes
+    see r2 = 1, so they never produce inf or NaN."""
+    mask = r2 > _EPS
+    return ops.where(mask, fn(ops.where(mask, r2, 1.0)), 0.0)
+
 
 def _linear(ops):
-    return lambda r2: -ops.sqrt(ops.clamp0(r2))
+    # phi(r) = -r; grad factor -1/r
+    def phi_r2(r2):
+        return -ops.sqrt(ops.clamp0(r2))
+
+    def grad(r2):
+        return _guard(ops, r2, lambda x: -1.0 / ops.sqrt(x))
+
+    return phi_r2, grad
 
 
 def _tps(ops):
+    # phi(r) = r^2 ln r (0 at 0); grad factor 2 ln r + 1
     def phi_r2(r2):
         safe = ops.where(r2 > _EPS, r2, 1.0)
         return ops.where(r2 > _EPS, r2 * (0.5 * ops.log(safe)), 0.0)
 
-    return phi_r2
+    def grad(r2):
+        return _guard(ops, r2, lambda x: 2.0 * (0.5 * ops.log(x)) + 1.0)
+
+    return phi_r2, grad
 
 
 def _cubic(ops):
-    return lambda r2: r2 * ops.sqrt(ops.clamp0(r2))
+    # phi(r) = r^3; grad factor 3 r
+    def phi_r2(r2):
+        return r2 * ops.sqrt(ops.clamp0(r2))
+
+    def grad(r2):
+        return _guard(ops, r2, lambda x: 3.0 * ops.sqrt(x))
+
+    return phi_r2, grad
 
 
 def _spheroidal(ops, order: int, base_range: float, total_sill: float):
     # near (s^2 r^2 <= ip^2): total_sill - total_sill*linear_slope*s * r
     # far:                    total_sill*inv_y_intercept / (t^POW sqrt(t)),
     #                         t = 1 + (s r)^2,  s = range_scaling/base_range
+    # grad factor: near -near_slope / r; far far_grad / (t^(POW+1) sqrt(t)),
+    #              far_grad = -2 (POW + 1/2) s^2 far_coef
     c = spheroidal_coefficients(order, base_range, total_sill)
+    pw = c["pw"]
 
     def phi_r2(r2):
         sr2 = c["s2"] * r2
         near = total_sill - c["near_slope"] * ops.sqrt(ops.clamp0(r2))
         t = 1.0 + sr2
-        far = c["far_coef"] / (t ** c["pw"] * ops.sqrt(t))
+        far = c["far_coef"] / (t ** pw * ops.sqrt(t))
         return ops.where(sr2 <= c["ip2"], near, far)
 
-    return phi_r2
+    def grad_live(r2):
+        sr2 = c["s2"] * r2
+        near = -c["near_slope"] / ops.sqrt(r2)
+        t = 1.0 + sr2
+        far = c["far_grad"] / (t ** (pw + 1) * ops.sqrt(t))
+        return ops.where(sr2 <= c["ip2"], near, far)
+
+    return phi_r2, lambda r2: _guard(ops, r2, grad_live)
 
 
 def _inverse_power(ops, p: int):
-    def phi_r2(r2):
-        mask = r2 > _EPS
-        safe = ops.where(mask, r2, 1.0)
-        val = safe ** (-p / 2.0) if p % 2 else safe ** (-(p // 2))
-        return ops.where(mask, val, 0.0)
+    # phi(r) = 1/r^p (0 at 0); grad factor -p / r^(p+2)
+    def inv_pow(q):
+        """r^-q where r2 > eps, else 0 (q may be odd: a half power of r2)."""
+        return lambda r2: _guard(
+            ops, r2, lambda x: x ** (-q / 2.0) if q % 2 else x ** (-(q // 2)))
 
-    return phi_r2
+    phi_r2 = inv_pow(p)
+    grad_q = inv_pow(p + 2)
+    return phi_r2, lambda r2: -p * grad_q(r2)
 
 
 def spheroidal_coefficients(order: int, base_range: float, total_sill: float) -> dict:
@@ -194,6 +254,8 @@ def spheroidal_coefficients(order: int, base_range: float, total_sill: float) ->
         "ip2": c.inflexion_point * c.inflexion_point,
         "near_slope": total_sill * c.linear_slope * s,
         "far_coef": total_sill * c.inv_y_intercept,
+        "far_grad": -2.0 * (_SPHEROIDAL_POW[order] + 0.5) * (s * s)
+        * (total_sill * c.inv_y_intercept),
         "total_sill": float(total_sill),
         "pw": _SPHEROIDAL_POW[order],
     }
@@ -209,7 +271,7 @@ def kernel_code(params: KernelParams) -> tuple[int, dict]:
         )
     else:
         coef = {"s2": 0.0, "ip2": 0.0, "near_slope": 0.0, "far_coef": 0.0,
-                "total_sill": 0.0, "pw": 0}
+                "far_grad": 0.0, "total_sill": 0.0, "pw": 0}
     return KERNEL_CODES[kt], coef
 
 
@@ -224,19 +286,20 @@ def make_kernel(params: KernelParams, xp=torch, dtype=None) -> Kernel:
         dtype = torch.float64 if xp is torch else np.float64
     kt = params.kernel_type
     if kt == KernelType.LinearRbf:
-        phi = _linear(ops)
+        phi, grad = _linear(ops)
     elif kt == KernelType.ThinPlateSplineRbf:
-        phi = _tps(ops)
+        phi, grad = _tps(ops)
     elif kt == KernelType.CubicRbf:
-        phi = _cubic(ops)
+        phi, grad = _cubic(ops)
     elif kt in _SPHEROIDAL_ORDER:
-        phi = _spheroidal(ops, _SPHEROIDAL_ORDER[kt], params.base_range, params.total_sill)
+        phi, grad = _spheroidal(ops, _SPHEROIDAL_ORDER[kt], params.base_range,
+                                params.total_sill)
     elif kt == KernelType.Laplacian:
-        phi = _inverse_power(ops, 1)
+        phi, grad = _inverse_power(ops, 1)
     elif kt == KernelType.OneOverR2:
-        phi = _inverse_power(ops, 2)
+        phi, grad = _inverse_power(ops, 2)
     elif kt == KernelType.OneOverR4:
-        phi = _inverse_power(ops, 4)
+        phi, grad = _inverse_power(ops, 4)
     else:
         raise ValueError(f"Unknown kernel type {kt}")
-    return Kernel(phi, xp, dtype)
+    return Kernel(phi, grad, xp, dtype)

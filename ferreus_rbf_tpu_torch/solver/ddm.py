@@ -151,7 +151,8 @@ class DDMTree:
         interpolant_settings: InterpolantSettings,
         ddm_params: DDMParams,
         factor_dtype=torch.float64,
-        device="cpu",
+        *,
+        device,
     ):
         self.points = np.asarray(points, np.float64)
         self.settings = interpolant_settings

@@ -1,4 +1,4 @@
-"""The port on the CUDA card: kernels H1/H2 and the device path.
+"""The port on the CUDA card: kernels H1/H2/H3 and the device path.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX (the machine with the card has none), so run it there without the
@@ -66,6 +66,60 @@ def test_kernel_matches_plain(cuda, dtype, name):
             assert float(got[0].abs().max()) == 0.0  # the count-0 row
 
 
+def _grad_operands(rng, cuda):
+    rows, t, s, ntiles, u, nrhs = 40, 100, 150, 30, 9, 3
+    src = np.zeros((ntiles + 1, 3, s))
+    src[:ntiles, :, :120] = rng.random((ntiles, 3, 120)) - 0.5
+    w = np.zeros((ntiles + 1, nrhs, s))
+    w[:ntiles, :, :120] = rng.standard_normal((ntiles, nrhs, 120))
+    nbr = rng.integers(0, ntiles, (u, rows)).astype(np.int32)
+    nbr[u - 1, ::2] = ntiles  # sentinel entries
+    cnt = rng.integers(0, u + 1, rows).astype(np.int32)
+    cnt[0] = 0
+    tgt = rng.random((rows, t, 3)) - 0.5
+    tgt[1, :10] = src[nbr[0, 1], :, :10].T  # exact copies of sources
+    dev = lambda a: torch.as_tensor(a).to(cuda)  # noqa: E731
+    return (dev(tgt), dev(src), dev(w), dev(nbr)), dev(cnt)
+
+
+@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
+def test_grad_kernel_matches_plain(cuda, name):
+    """H3 against its plain version: values and gradients, with and without
+    counts, a count-0 row, sentinel entries and coincident points."""
+    args, cnt = _grad_operands(np.random.default_rng(8), cuda)
+    for c in (None, cnt):
+        before = nf.LAUNCHES["near_field_grad_f64"]
+        got_v, got_g = nf.near_field_grad(*args, c, kparams=_params(name))
+        assert nf.LAUNCHES["near_field_grad_f64"] == before + 1
+        want_v, want_g = nf.near_field_grad_plain(*args, c, kparams=_params(name))
+        assert torch.isfinite(got_g).all()
+        assert _rel(got_v, want_v) < 1e-12
+        assert _rel(got_g, want_g) < 1e-12
+        if c is not None:
+            assert float(got_v[0].abs().max()) == 0.0 == float(got_g[0].abs().max())
+
+
+def test_gradients_on_card_match_cpu(cuda):
+    """evaluate_with_gradients on the clustered tree (P2P, M2P and P2L all
+    present), on the card and on the CPU: the same function."""
+    rng = np.random.default_rng(3)
+    blob = rng.normal(scale=0.02, size=(2000, 3)) + 0.25
+    pts = np.clip(np.concatenate([blob, rng.random((500, 3))]), 0, 1)
+    params = frt.FmmParams(interpolation_order=4, max_points_per_cell=64, epsilon=1e-4)
+    w = rng.standard_normal((pts.shape[0], 2))
+    out = {}
+    for dev in ("cpu", cuda):
+        tree = FmmTree(pts, 4, _params("Spheroidal5Rbf"), adaptive_tree=True,
+                       sparse=True, params=params, device=dev)
+        assert tree._m2p_nw > 0 and tree.p2l_cells.size > 0
+        before = nf.LAUNCHES["near_field_grad_f64"]
+        out[str(dev)] = tree.evaluate_with_gradients(w, pts)
+        launched = nf.LAUNCHES["near_field_grad_f64"] - before
+        assert launched == (2 if dev == cuda else 0)  # P2P and M2P
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert _rel(torch.as_tensor(got), torch.as_tensor(want)) < 1e-12
+
+
 @pytest.mark.parametrize("precision", ["f64", "f32"])
 def test_fmm_matvec_on_card_matches_cpu(cuda, precision):
     """A clustered adaptive tree (P2P, M2P and P2L all present) evaluated
@@ -99,6 +153,7 @@ def test_iterative_fit_on_card():
     rbfi = frt.RBFInterpolator(
         pts, vals, frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear),
         params=params, device="cuda")
-    assert all(n > 0 for n in nf.LAUNCHES.values())
+    # the fit's kernels: H1 (f32 inner matvecs) and H2 (f64 refinement)
+    assert nf.LAUNCHES["near_field_f32"] > 0 and nf.LAUNCHES["near_field_f64"] > 0
     resid = np.max(np.abs(rbfi.evaluate_at_source(True) - vals))
     assert resid < 5e-6, resid

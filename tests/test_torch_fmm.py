@@ -42,7 +42,7 @@ def _trees(pts, name, adaptive=True, sparse=True):
     jt = JaxTree(pts, 4, _params(jk, name), adaptive_tree=adaptive, sparse=sparse,
                  params=JFP(compression_type=JFC.ACA, **fmm))
     tt = FmmTree(pts, 4, _params(tk, name), adaptive_tree=adaptive, sparse=sparse,
-                 params=FmmParams(compression_type=FmmCompressionType.ACA, **fmm))
+                 params=FmmParams(compression_type=FmmCompressionType.ACA, **fmm), device="cpu")
     return jt, tt
 
 
@@ -121,7 +121,8 @@ def test_evaluate_off_source_matches_jax_and_dense():
     jt = JaxTree(pts, 4, _params(jk, name), adaptive_tree=True, sparse=False,
                  extents=extents, params=JFP(compression_type=JFC.ACA, **fmm))
     tt = FmmTree(pts, 4, _params(tk, name), adaptive_tree=True, sparse=False,
-                 extents=extents, params=FmmParams(compression_type=FmmCompressionType.ACA, **fmm))
+                 extents=extents, params=FmmParams(compression_type=FmmCompressionType.ACA, **fmm),
+                 device="cpu")
     w = np.random.default_rng(13).standard_normal((pts.shape[0], 1))
     jt.set_weights(w)
     tt.set_weights(w)
@@ -136,7 +137,7 @@ def test_outside_target_raises():
     pts = np.random.default_rng(14).random((200, 2))
     tt = FmmTree(pts, 3, _params(tk, "LinearRbf"), params=FmmParams(
         interpolation_order=3, max_points_per_cell=16, epsilon=1e-3),
-        extents=np.array([0.0, 0.0, 1.0, 1.0]))
+        extents=np.array([0.0, 0.0, 1.0, 1.0]), device="cpu")
     tt.set_weights(np.ones((200, 1)))
     from ferreus_rbf_tpu_torch.ops.fmm.tree import PointOutsideTreeError
 
