@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
 2. kernel vs plain PyTorch version for all ten kernel types, f32 (H1) and
    f64 (H2), and the f64 gradient kernel (H3), with and without per-row
    counts, with sentinel entries, a row of count 0 and (H3) targets that
-   are exact copies of sources;
+   are exact copies of sources; then the cell-node kernels H4 (f32, f64,
+   gradients) the same way, with sentinel cells and targets that coincide
+   with cell nodes;
 3. config-2 matvec: 100k uniform 3-D points, LinearRbf, p = 5, 8 RHS,
    uniform tree, at f32 and f64, against a dense f64 oracle on 1,024
    targets; median of 5 timed matvecs;
@@ -27,14 +29,26 @@ Phases (any failure raises and the script exits non-zero):
 6. the isosurface path: ``build_isosurface`` of the phase-4 fit at span/100
    (the reference example's settings), checked for a non-empty mesh with
    finite vertices inside the padded extents and no edge on more than two
-   facets.
+   facets;
+7. config 4, the north-star fit: 1,000,000 signed-distance samples in a
+   shell around a bumpy sphere (``bench.py``'s ``_synthetic_sd``, seed 11),
+   LinearRbf, default Params, through ``RBFInterpolator``: fit seconds and
+   stages, the solver's residual and refinement rounds, the DDM's
+   per-level leaf sizes, ``evaluate_at_source`` against the values, a
+   dense f64 oracle at 1,024 sources, peak device memory, and whether the
+   P2M/L2P weight budget switched;
+8. the M2P node-tile gate at 1M: phase 7's weights on one tree with the
+   gate at its default and one with ``FERREUS_RBF_TPU_NODETILE_BYTES=0``
+   (gated, M2P on H4): f32 and f64 matvecs and gradients at 4,096 sources
+   compared between the two, H4 held against its plain version on the
+   gated tree's whole M2P and timed against the ungated M2P leg (H1/H2/H3).
 
-Phases 4, 5 and 6 each zero the kernels' launch counters just before they
-drive the port and read them just after. The line before the last is a
-JSON object with one entry per kernel: its launches on its path (phase 4
-for H1/H2, phase 6 for H3), its error and time against the plain version
-at the albatite shapes, and its bound; the last line is
-``{"ok": true, "device": {...}}``.
+Phases 4-8 each zero the kernels' launch counters just before they drive
+the port and read them just after. The line before the last is a JSON
+object with one entry per kernel: its launches on its path (phase 4 for
+H1/H2, phase 6 for H3, phase 8's gated tree for H4), its error and time
+against the plain version (the albatite shapes for H1-H3, phase 8's gated
+M2P for H4), and its bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -54,6 +68,11 @@ REPLACES = {
     "near_field_f32": "ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:595",
     "near_field_f64": "ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:698",
     "near_field_grad_f64": "ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:779",
+    "near_field_cells_f32": "ferreus_rbf_tpu/ops/fmm/p2p_pallas.py:834",
+    # the gated f64 and gradient M2P run on the JAX package's virtual-node
+    # XLA scan (_near_field_class), which p2p_rows serves in f32 only
+    "near_field_cells_f64": "ferreus_rbf_tpu/ops/fmm/api.py:613",
+    "near_field_cells_grad_f64": "ferreus_rbf_tpu/ops/fmm/api.py:613",
 }
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # p = 5 Chebyshev truncation: ~5e-5 relative on the JAX package's error
@@ -64,6 +83,13 @@ CONFIG2_BOUND = 5e-4
 CONFIG2_GRAD_BOUND = 1e-2
 # albatite (p = 7) gradients against a dense f64 gradient
 ALBATITE_GRAD_BOUND = 1e-3
+# config 4 (p = 7): evaluate_at_source and the dense oracle, relative to
+# max |values| (bench.py's config-4 check)
+CONFIG4_BOUND = 1e-4
+# gradients of two full FMM pipelines at 1M (p = 7): the card's index_add_
+# in M2M and L2L adds in no fixed order; one tree evaluated twice differed
+# by 9.1e-13 of max |grad| (PERF.md), and this allows 3x that
+GRAD_NOISE = 3e-12
 
 # H100 SXM published peaks (NVIDIA data sheet): non-tensor FLOP/s by type
 # and HBM3 bytes/s. A kernel's bound is the larger of its flops over the
@@ -121,13 +147,14 @@ def kernel_vs_plain(nf, kparams, tgt, src, w, nbr, cnt, grad=False):
             max(float((a - b).abs().max()) for a, b in zip(got, want)))
 
 
-def near_field_bound(kparams, ops, tlive, slive, grad):
+def near_field_bound(kparams, ops, tlive, slive, grad, nrhs=None):
     """(bound ms, "operations" or "bytes", flops) of one near-field call:
     the live (target, source) pairs these operands need (real targets of a
-    row times the real sources of each tile it lists before its count,
-    sentinels excluded) times the flops per pair, against the bytes of the
-    operands and outputs."""
-    tgt, src, w, nbr, cnt = ops
+    row times the real sources of each tile or cell it lists before its
+    count, sentinels excluded) times the flops per pair, against the bytes
+    of the operands and outputs. ``ops`` is (tgt, nbr, cnt, *other inputs);
+    ``nrhs`` defaults to the weight tiles' (ops[4].shape[1])."""
+    tgt, nbr, cnt = ops[:3]
     u = nbr.shape[0]
     idx = nbr.T.long()
     live = torch.ones_like(idx, dtype=torch.bool)
@@ -136,7 +163,8 @@ def near_field_bound(kparams, ops, tlive, slive, grad):
     per_row = (slive[idx] * live).sum(1)
     pairs = float((per_row.double() * tlive.double()).sum())
     name = kparams.kernel_type.value
-    nrhs, d = w.shape[1], tgt.shape[2]
+    nrhs = ops[4].shape[1] if nrhs is None else nrhs
+    d = tgt.shape[2]
     per_pair = 8 + PHI_FLOPS[name] + 2 * nrhs  # 3 sub + 1 mul + 2 FMA = 8
     if grad:
         per_pair += G_FLOPS[name] + 3 + 2 * d * nrhs  # g * diff, d more FMAs per rhs
@@ -215,6 +243,72 @@ def phase_kernels(nf, kt_mod, dev):
         f"bound 1e-12)")
 
 
+def cells_vs_plain(nf, kparams, ops, grad=False):
+    """(relative error, max |diff|) of H4 against its plain version on the
+    operands (tgt, cells, cnt, centers, lengths, nodes, mult); for the
+    gradient form the worse of values and gradients."""
+    if grad:
+        got = nf.near_field_cells_grad(*ops, kparams=kparams)
+        want = nf.near_field_cells_grad_plain(*ops, kparams=kparams)
+    else:
+        got = (nf.near_field_cells(*ops, kparams=kparams),)
+        want = (nf.near_field_cells_plain(*ops, kparams=kparams),)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(x).all() for x in want + got):
+        raise AssertionError("H4 or its plain version is not finite")
+    return (max(rel_err(a, b) for a, b in zip(got, want)),
+            max(float((a - b).abs().max()) for a, b in zip(got, want)))
+
+
+def phase_kernels_cells(nf, kt_mod, dev):
+    """H4: all kernel types x {f32, f64, gradients} x {counts, none} x nrhs
+    {1, 2, 8} on p = 7 cells (343 nodes: three staging blocks, the last
+    partial), with sentinel cells, a row of count 0 and targets that
+    coincide with nodes of a listed cell."""
+    from ferreus_rbf_tpu_torch.ops.fmm import cheb
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    f64 = torch.float64
+    p, ncells, rows, t, u = 7, 300, 160, 128, 16
+    nodes = torch.as_tensor(cheb.nodes_tensor_product(cheb.chebyshev_nodes(p), 3))
+    centers = torch.rand((ncells, 3), generator=g, dtype=f64) - 0.5
+    lengths = 0.05 + 0.15 * torch.rand((ncells,), generator=g, dtype=f64)
+    cells = torch.randint(0, ncells, (u, rows), generator=g, dtype=torch.int32)
+    cells[12:, ::3] = ncells  # sentinel cells
+    cnt = torch.randint(0, u + 1, (rows,), generator=g, dtype=torch.int32)
+    cnt[0] = 0
+    tgt = torch.rand((rows, t, 3), generator=g, dtype=f64) - 0.5
+    for r in range(1, rows, 7):  # exact copies of a listed cell's nodes
+        c = int(cells[0, r])
+        tgt[r, :20] = centers[c] + (lengths[c] * 0.5) * nodes[:20]
+    geo = [x.to(dev) for x in (centers, lengths, nodes)]
+    worst = {}
+    for nrhs in (1, 2, 8):
+        mult = torch.randn((ncells, nodes.shape[0], nrhs), generator=g, dtype=f64)
+        for kt in kt_mod.KernelType:
+            kw = {"base_range": 1.0, "total_sill": 0.7} if "Spheroidal" in kt.value else {}
+            kp = kt_mod.KernelParams(kt, **kw)
+            for dtype, grad in ((torch.float32, False), (f64, False), (f64, True)):
+                for c in (None, cnt.to(dev)):
+                    ops = (tgt.to(dev, dtype), cells.to(dev), c, *geo, mult.to(dev, dtype))
+                    err, _ = cells_vs_plain(nf, kp, ops, grad)
+                    key = ("grad" if grad else str(dtype).split(".")[-1])
+                    if not err <= TOL[dtype]:
+                        raise AssertionError(
+                            f"H4 vs plain {(kt.value, key, nrhs, c is not None)}: {err:.3e}")
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    if c is not None:
+                        fn = nf.near_field_cells_grad if grad else nf.near_field_cells
+                        outs = fn(*ops, kparams=kp)
+                        for out in (outs if grad else (outs,)):
+                            if float(out[0].abs().max()) != 0.0:
+                                raise AssertionError("H4: a row with count 0 must be zero")
+    for key, err in worst.items():
+        log(f"phase 2: H4 near_field_cells {key}, 10 kernel types x counts x nrhs {{1,2,8}}, "
+            f"p = 7 cells, coincident targets: worst relative error {err:.3e} "
+            f"(bound {TOL[torch.float32 if key == 'float32' else f64]:.0e})")
+
+
 def time_near_field(nf, tree, binned, dtype, kparams, nrhs, g, grad=False):
     """Kernel and plain-version times (ms), errors and bounds on a tree's
     own P2P and M2P operands (H3 when ``grad``)."""
@@ -251,7 +345,8 @@ def time_near_field(nf, tree, binned, dtype, kparams, nrhs, g, grad=False):
             raise AssertionError(f"{name} kernel vs plain: {rel:.3e} > {TOL[dtype]}")
         ms = cuda_ms(lambda: kernel(*ops, kparams=kparams))
         plain_ms = cuda_ms(lambda: plain(*ops, kparams=kparams), reps=3)
-        bound_ms, bound_by, flops = near_field_bound(kparams, ops, tlive, slive[name], grad)
+        bound_ms, bound_by, flops = near_field_bound(
+            kparams, (tgt, nbr, cnt, src, ops[2]), tlive, slive[name], grad)
         res[name] = {"rel": rel, "abs": absd, "ms": ms, "plain_ms": plain_ms,
                      "gpairs_s": pairs / (ms * 1e-3) / 1e9, "bound_ms": bound_ms,
                      "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12,
@@ -439,7 +534,7 @@ def phase_albatite(frt, nf, timing, dev):
         raise AssertionError("grid gradients not finite or of the wrong shape")
     if not (val_err <= 1e-12 and grad_err <= ALBATITE_GRAD_BOUND):
         raise AssertionError(f"albatite gradients: values {val_err:.3e}, grads {grad_err:.3e}")
-    if not all(launches[name] > 0 for name in nf.LAUNCHES):
+    if not all(launches[name] > 0 for name in REPLACES if not name.startswith("near_field_cells")):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
 
     # kernel vs plain at the fit's own shapes (nrhs 1): its "__all__" tree;
@@ -578,6 +673,239 @@ def phase_isosurface(frt, nf, timing, rbfi, pts, span):
     return launches
 
 
+def synthetic_sd(n, seed=11):
+    """Config 4's data, a copy of ``bench.py``'s ``_synthetic_sd``:
+    signed-distance samples in a volumetric shell around a bumpy unit
+    sphere (zero level = the bumpy sphere), radii continuous in [0.7, 1.3]."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    bump = 1.0 + 0.15 * np.sin(4 * dirs[:, 0]) * np.cos(3 * dirs[:, 1])
+    radii = 0.7 + 0.6 * rng.random(n)
+    pts = dirs * (bump * radii)[:, None]
+    sd = (radii - 1.0) * bump
+    return pts, sd
+
+
+def dense_oracle(rbfi, idx, dev):
+    """The fitted interpolant at sources ``idx`` in dense f64 on the card
+    (kernel sum + nugget + drift; ``bench.py``'s oracle): a host array."""
+    from ferreus_rbf_tpu_torch.ops import polynomials
+    from ferreus_rbf_tpu_torch.ops.dense import dense_matvec
+    from ferreus_rbf_tpu_torch.ops.kernels import make_kernel
+
+    settings = rbfi.interpolant_settings
+    src = torch.as_tensor(rbfi.points, device=dev)
+    coef = rbfi.coefficients.point_coefficients
+    out = dense_matvec(make_kernel(settings.kernel_params()), src[idx], src,
+                       torch.as_tensor(coef, device=dev), chunk=64).cpu().numpy()
+    out = out + settings.nugget * coef[idx]
+    pc = rbfi.coefficients.poly_coefficients
+    if pc is not None and pc.size:
+        out = out + polynomials.evaluate_monomials(
+            rbfi.points[idx], settings.polynomial_degree, pc.shape[0],
+            rbfi.translation_factor, rbfi.scale_factor) @ pc
+    return out.reshape(-1)
+
+
+def phase_config4(frt, nf, timing, dev, n=1_000_000):
+    """Config 4: the 1M-point LinearRbf signed-distance fit, default Params."""
+    pts, sd = synthetic_sd(n, seed=11)
+    settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tracer = timing.enable_global_tracer()
+    nf.reset_launches()
+    t0 = time.perf_counter()
+    rbfi = frt.RBFInterpolator(pts, sd, settings, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    timing.disable_global_tracer()
+    launches = dict(nf.LAUNCHES)
+    fit_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    events = tracer.events
+    done = [e for e in events if e["event"] == "solve_done"]
+    solver_res = done[-1]["residual"]
+    rounds = sum(e["event"] == "refine_round" for e in events)
+    strip = lambda e: {k: v for k, v in e.items() if k != "event"}  # noqa: E731
+    log(f"phase 7: config-4 fit {fit_s:.3f} s, n {rbfi.points.shape[0]} of {n}, solver l2 "
+        f"residual {solver_res:.3e} (bound 1e-6), refinement rounds {rounds}, converged "
+        f"{done[-1]['converged']}, escalated {done[-1].get('escalated')}")
+    log(f"phase 7: refinement {json.dumps([strip(e) for e in events if e['event'] == 'refine_round'])}")
+    log(f"phase 7: fit stages (s) {json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
+    log(f"phase 7: DDM levels {json.dumps([strip(e) for e in events if e['event'] == 'ddm_level'])}")
+    log(f"phase 7: FMM trees {json.dumps([strip(e) for e in events if e['event'] == 'fmm_tree'])}")
+    log(f"phase 7: target sets {json.dumps([strip(e) for e in events if e['event'] == 'fmm_targets'])}")
+    log(f"phase 7: fit launches {json.dumps(launches)}; fit peak device memory {fit_peak_gb:.3f} GB")
+
+    vals = rbfi.point_values[:, 0]
+    t0 = time.perf_counter()
+    pred = rbfi.evaluate_at_source(add_nugget=True)
+    eval_s = time.perf_counter() - t0
+    scale = float(np.max(np.abs(vals)))
+    rel = float(np.max(np.abs(pred - vals))) / scale
+    idx = np.sort(np.random.default_rng(3).choice(vals.size, 1024, replace=False))
+    t0 = time.perf_counter()
+    oracle = dense_oracle(rbfi, idx, dev)
+    oracle_s = time.perf_counter() - t0
+    value_err = float(np.max(np.abs(pred[idx] - oracle))) / float(np.max(np.abs(oracle)))
+    true_res = float(np.max(np.abs(oracle - vals[idx]))) / scale
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"phase 7: evaluate_at_source {eval_s:.3f} s, max residual / max|vals| {rel:.3e} "
+        f"(bound {CONFIG4_BOUND:.0e}); dense f64 oracle on 1,024 sources ({oracle_s:.3f} s): "
+        f"evaluation vs oracle {value_err:.3e}, oracle residual {true_res:.3e} "
+        f"(bound {CONFIG4_BOUND:.0e}); peak device memory {peak_gb:.3f} GB")
+    if not solver_res <= 1e-6:
+        raise AssertionError(f"config-4 solver residual {solver_res:.3e}")
+    if not (pred.shape == vals.shape and np.isfinite(pred).all() and rel < CONFIG4_BOUND):
+        raise AssertionError(f"config-4 source residual {rel:.3e}")
+    if not (value_err < CONFIG4_BOUND and true_res < CONFIG4_BOUND):
+        raise AssertionError(f"config-4 oracle: evaluation {value_err:.3e}, residual {true_res:.3e}")
+    if not (launches["near_field_f32"] > 0 and launches["near_field_f64"] > 0):
+        raise AssertionError(f"H1 or H2 never launched in the 1M fit: {launches}")
+    return rbfi
+
+
+GATE_ENV = "FERREUS_RBF_TPU_NODETILE_BYTES"
+
+
+def phase_gate(nf, dev, rbfi):
+    """The node-tile gate at 1M: a default tree and a forced-gated one over
+    phase 7's points and weights. Returns H4's kernel-line entries."""
+    from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
+
+    pts = rbfi.points
+    n = pts.shape[0]
+    w = rbfi.coefficients.point_coefficients
+    fp = rbfi.params.fmm_params
+    kp = rbfi.interpolant_settings.kernel_params()
+
+    def build():
+        t0 = time.perf_counter()
+        tree = FmmTree(pts, fp.interpolation_order, kp, adaptive_tree=True, sparse=True,
+                       params=fp, device=dev)
+        tree.prepare_targets(pts, "src")
+        torch.cuda.synchronize()
+        return tree, time.perf_counter() - t0
+
+    if GATE_ENV in os.environ:
+        raise RuntimeError(f"unset {GATE_ENV}: phase 8 compares the default gate with 0")
+    ungated, t_u = build()
+    os.environ[GATE_ENV] = "0"
+    try:
+        gated, t_g = build()
+    finally:
+        del os.environ[GATE_ENV]
+    budget = 1.5e9
+    log(f"phase 8: trees built in {t_u:.3f} s (default gate) and {t_g:.3f} s (gate 0); "
+        f"w-list cells {ungated.m2p_cells}, node-tile bytes {ungated.nodetile_bytes} "
+        f"(saved when gated), default gate fired: {ungated._m2p_tiles_gated}; at this "
+        f"density the gate would fire unforced near N = {n * budget / ungated.nodetile_bytes:.4g} "
+        f"(linear in N)")
+    if ungated._m2p_tiles_gated or not gated._m2p_tiles_gated:
+        raise AssertionError("phase 8 needs one ungated and one gated tree")
+
+    wd = torch.as_tensor(w, device=dev)
+    idx = np.sort(np.random.default_rng(6).choice(n, 4096, replace=False))
+    out, launches = {}, {}
+    for key, tree in (("ungated", ungated), ("gated", gated)):
+        torch.cuda.synchronize()
+        nf.reset_launches()
+        v32 = tree.evaluate_device(wd, "src", "f32")
+        v64 = tree.evaluate_device(wd, "src", "f64")
+        tree.set_local_coefficients(w)
+        gv, gg = tree.evaluate_leaves_with_gradients(w, pts[idx])
+        torch.cuda.synchronize()
+        launches[key] = dict(nf.LAUNCHES)
+        out[key] = (v32, v64, torch.as_tensor(gv), torch.as_tensor(gg))
+    errs = [rel_err(a, b) for a, b in zip(out["gated"], out["ungated"])]
+    # the card's index_add_ (M2M, L2L) adds in no fixed order, so two full
+    # pipelines differ in the last bits: the gated leaf pass on the ungated
+    # tree's expansions isolates the gate, and the ungated tree after a
+    # second upward and downward pass measures that noise
+    gated._weight_tiles, gated._multipole, gated._local = (
+        ungated._weight_tiles, ungated._multipole, ungated._local)
+    shared = [torch.as_tensor(x) for x in gated.evaluate_leaves_with_gradients(w, pts[idx])]
+    shared = [rel_err(a, b) for a, b in zip(shared, out["ungated"][2:])]
+    ungated._multipole = None
+    again = [torch.as_tensor(x) for x in ungated.evaluate_with_gradients(w, pts[idx])]
+    noise = [rel_err(a, b) for a, b in zip(again, out["ungated"][2:])]
+    log(f"phase 8: gated vs ungated: f32 matvec {errs[0]:.3e} (bound 1e-5), f64 matvec "
+        f"{errs[1]:.3e} (bound 1e-12); at 4,096 sources, each tree's own expansions: "
+        f"values {errs[2]:.3e} (bound 1e-12), gradients {errs[3]:.3e} (bound "
+        f"{GRAD_NOISE:.0e}); on shared expansions: values {shared[0]:.3e}, gradients "
+        f"{shared[1]:.3e} (bound 1e-12); the ungated tree against itself after a second "
+        f"upward and downward pass: values {noise[0]:.3e}, gradients {noise[1]:.3e} "
+        f"(bound {GRAD_NOISE:.0e})")
+    log(f"phase 8: launches ungated {json.dumps(launches['ungated'])}; "
+        f"gated {json.dumps(launches['gated'])}")
+    cells = ("near_field_cells_f32", "near_field_cells_f64", "near_field_cells_grad_f64")
+    if not all(launches["gated"][k] > 0 for k in cells):
+        raise AssertionError(f"H4 never launched on the gated tree: {launches['gated']}")
+    if any(launches["ungated"][k] for k in cells):
+        raise AssertionError(f"H4 launched on the ungated tree: {launches['ungated']}")
+    if not (errs[0] <= 1e-5 and max(errs[1:3] + shared + noise[:1]) <= 1e-12
+            and max(errs[3], noise[1]) <= GRAD_NOISE):
+        raise AssertionError(f"gated vs ungated: {errs}, shared {shared}, noise {noise}")
+
+    # H4 on the gated M2P operands, against its plain version on the same
+    # operands (all rows, in the plain version's row chunks) and against the
+    # ungated M2P leg (H1/H2/H3 on the stored node tiles) on the same tree;
+    # the 256 rows with the longest w-lists show how much the tail weighs
+    binned, ub = gated._target_cache["src"], ungated._target_cache["src"]
+    t = binned[torch.float64]["tpts"].shape[1]
+    tlive = torch.bincount(binned["inv_flat"] // t, minlength=binned["wcnt"].shape[0])
+    slive = torch.full((gated.tree.num_cells + 1,), gated.nnodes, device=dev)
+    slive[-1] = 0
+    sel = torch.argsort(binned["wcnt"], descending=True)[:256]
+    log(f"phase 8: w-list cells per row: max {int(binned['wcnt'].max())}, mean over rows "
+        f"{float(binned['wcnt'].double().mean()):.2f}, rows {binned['wcnt'].shape[0]}")
+    entries = {}
+    for name, dtype, grad in (("near_field_cells_f32", torch.float32, False),
+                              ("near_field_cells_f64", torch.float64, False),
+                              ("near_field_cells_grad_f64", torch.float64, True)):
+        tpts = gated._binned_floats(binned, dtype)["tpts"]
+        mult = gated._multipole.to(dtype)
+        ops = (tpts, binned["wtab"], binned["wcnt"], *gated._cell_geometry(), mult)
+        leg = (ungated._binned_floats(ub, dtype)["tpts"], ungated._floats(dtype)["node_tiles"],
+               ungated._m2p_tiles(ungated._multipole.to(dtype)), ub["wtab"], ub["wcnt"])
+        chunk = (tpts[sel].contiguous(), binned["wtab"][:, sel].contiguous(),
+                 binned["wcnt"][sel].contiguous(), *ops[3:])
+        h4 = nf.near_field_cells_grad if grad else nf.near_field_cells
+        h123 = nf.near_field_grad if grad else nf.near_field
+        plain = nf.near_field_cells_grad_plain if grad else nf.near_field_cells_plain
+        rel, absd = cells_vs_plain(nf, kp, ops, grad)
+        held = rel
+        if dtype == torch.float32:
+            # a row sums (w-list cells x p^d) f32 terms, tens of thousands
+            # at 1M, and two summation orders differ in proportion to the
+            # sum of |terms|, not to |sum|: the f32 check is held against
+            # that scale (phi = -r keeps one sign here, so the plain version
+            # on |mult| gives it up to sign)
+            held = absd / float(plain(*ops[:-1], mult.abs(), kparams=kp).abs().max())
+        if not held <= TOL[dtype]:
+            raise AssertionError(f"{name} vs plain on the gated M2P: {held:.3e}")
+        ms = cuda_ms(lambda: h4(*ops, kparams=kp))
+        leg_ms = cuda_ms(lambda: h123(*leg, kparams=kp))
+        chunk_ms = cuda_ms(lambda: h4(*chunk, kparams=kp))
+        plain_ms = cuda_ms(lambda: plain(*ops, kparams=kp), reps=1)
+        bound_ms, bound_by, flops = near_field_bound(kp, ops, tlive, slive, grad,
+                                                     nrhs=mult.shape[2])
+        pairs = float((binned["wcnt"].double() * t).sum()) * gated.nnodes
+        log(f"phase 8: {name} gated M2P, rows {tpts.shape[0]}: kernel {ms:.4f} ms "
+            f"({pairs / (ms * 1e-3) / 1e9:.1f} Gpair/s, {flops / (ms * 1e-3) / 1e12:.2f} "
+            f"TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+            f"max |diff| {absd:.3e}: {rel:.3e} of max |out|, {held:.3e} of the scale held "
+            f"(bound {TOL[dtype]:.0e}); ungated M2P leg "
+            f"({'H3' if grad else 'H1' if dtype == torch.float32 else 'H2'}) {leg_ms:.4f} ms, "
+            f"gated / ungated {ms / leg_ms:.3f}; the {sel.numel()} longest rows alone: "
+            f"kernel {chunk_ms:.4f} ms")
+        entries[name] = kernel_entry(name, launches["gated"][name],
+                                     {"abs": absd, "ms": ms, "plain_ms": plain_ms,
+                                      "bound_ms": bound_ms, "bound_by": bound_by})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is false)")
@@ -607,11 +935,14 @@ def main():
             log(f"phase 1: ptxas {entry}: {line.strip()}")
 
     phase_kernels(nf, kt_mod, dev)
+    phase_kernels_cells(nf, kt_mod, dev)
     phase_config2(frt, nf, dev)
     rbfi, pts, span, entries = phase_albatite(frt, nf, timing, dev)
     phase_config2_gradients(nf, dev)
     iso_launches = phase_isosurface(frt, nf, timing, rbfi, pts, span)
     entries["near_field_grad_f64"]["launches"] = iso_launches["near_field_grad_f64"]
+    rbfi4 = phase_config4(frt, nf, timing, dev)
+    entries.update(phase_gate(nf, dev, rbfi4))
 
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

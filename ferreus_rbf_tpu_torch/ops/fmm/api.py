@@ -5,14 +5,27 @@ The octree, interaction lists, M2L operators and the bucket layout are
 built once on the host in numpy (``tree.py``, ``cheb.py``, ``m2l.py``) and
 moved to ``device`` as flat tensors. One matvec is
 
-* upward pass: P2M as one batched matmul against precomputed leaf
-  anterpolation weights, then M2M per level (one einsum + index_add);
+* upward pass: P2M as one batched matmul against the leaf anterpolation
+  weights, then M2M per level (one einsum + index_add);
 * downward pass: M2L per level as two batched einsums over per-vector
   (U, V^T) stacks, chunked over target cells; P2L over the x-list on the
   near-field kernel (target cells' Chebyshev nodes as targets); L2L;
-* leaf pass: L2P against precomputed target anterpolation weights, then
-  the near field (:func:`near_field.near_field`: u-list P2P and w-list M2P
-  on the same tile kernels), then a gather back to target order.
+* leaf pass: L2P against the target anterpolation weights, then the near
+  field (:func:`near_field.near_field`: u-list P2P and w-list M2P on the
+  same tile kernels), then a gather back to target order.
+
+Two memory budgets decide what stays resident at scale. The P2M table
+(leaves, smax, p^d) and each target set's L2P table (rows, T, p^d) are
+precomputed while their float64 bytes stay within ``_WEIGHT_TABLE_BYTES``;
+above it the weights are computed per leaf chunk and per row chunk inside
+the pass, with transients of at most ``(1 << 23) * eval_chunk_size / 1024``
+elements (the JAX package's ``_upward`` and ``_l2p_impl``). The M2P node
+tiles (each w-list cell's p^d nodes, float64 plus a float32 copy) are kept
+while their bytes stay within ``FERREUS_RBF_TPU_NODETILE_BYTES`` (default
+1.5e9, the JAX package's variable and default); above it the tree is
+*gated* (``_m2p_tiles_gated``): no node tiles are stored, the w-list table
+holds global cell ids, and the M2P runs on :func:`near_field.near_field_cells`,
+which computes each cell's nodes while it stages them.
 
 ``precision="f32"`` runs every pass in float32 (the solver's inner
 matvec); ``"f64"`` runs every pass in float64. Results come back float64.
@@ -31,20 +44,29 @@ run on the CPU (the kernels' plain versions).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ...config import FmmCompressionType, FmmParams
-from ...utils.timing import traced_stage
+from ...utils.timing import record_event, traced_stage
 from ..kernels import Kernel, KernelParams, make_kernel
 from . import cheb, m2l, tree as tree_mod
-from .near_field import near_field, near_field_grad
+from .near_field import near_field, near_field_cells, near_field_cells_grad, near_field_grad
 from .tree import Octree, PointOutsideTreeError, calculate_tree_center_and_radius
 
 __all__ = ["FmmTree", "KernelDoesNotSupportGradientsError", "PointOutsideTreeError",
            "resolve_device"]
 
 _PRECISIONS = {"f32": torch.float32, "f64": torch.float64}
+
+# Largest float64 P2M or L2P weight table (bytes) kept resident; larger
+# tables are computed per chunk inside the pass. Resident tables are the
+# faster path wherever they fit (weight_budget.py): this keeps config 4 at
+# 1M points resident (a 10.5 GB P2M table, ~43 GB peak with the f32
+# copies) and bounds what a larger tree keeps on an 80 GB card.
+_WEIGHT_TABLE_BYTES = 12e9
 
 
 class KernelDoesNotSupportGradientsError(ValueError):
@@ -304,13 +326,6 @@ class FmmTree:
         # source tiles (nsl+1, d, smax); pad slots sit at the tree centre
         tiles = np.where(mask[:, None, :], pts_c[self.src_bucket_idx].transpose(0, 2, 1), 0.0)
         nodes_t = self._tensor(self.nodes_t)
-        # P2M anterpolation weights (nsl, smax, p^d), pad slots zeroed
-        p2m_w = cheb.anterpolation_weights_torch(
-            self._tensor(tiles[:nsl].transpose(0, 2, 1)),
-            self._tensor(cell_centers_c[self.src_leaf_cells]),
-            self._tensor(self.cell_lengths[self.src_leaf_cells]),
-            nodes_t, d,
-        ) * self._tensor(mask[:nsl, :, None])
         self._dev = {
             "src_orig": self._tensor(self.tree.point_order[self.src_bucket_idx], long),
             "src_mask": self._tensor(mask),
@@ -331,7 +346,6 @@ class FmmTree:
         )
         self._floats64 = {
             "src_tiles": self._tensor(tiles),
-            "p2m_w": p2m_w,
             "m2m_ops": self._tensor(self.m2m_ops),
             "m2l": [(self._tensor(u), None if vt is None else self._tensor(vt))
                     for u, vt, _st, _sc, _lc in self.m2l_levels],
@@ -341,14 +355,39 @@ class FmmTree:
             "cell_lengths": self._tensor(self.cell_lengths),
         }
         self._floats32 = None
+        # P2M anterpolation weights (nsl, smax, p^d), pad slots zeroed; kept
+        # only within the budget (else computed per leaf chunk in _upward)
+        self.p2m_bytes = nsl * self.smax * self.nnodes * 8
+        if self.p2m_bytes <= _WEIGHT_TABLE_BYTES:
+            self._floats64["p2m_w"] = cheb.anterpolation_weights_torch(
+                self._floats64["src_tiles"][:nsl].transpose(1, 2),
+                self._floats64["cell_centers"][self._dev["leaf_cells"]],
+                self._floats64["cell_lengths"][self._dev["leaf_cells"]],
+                nodes_t, d,
+            ) * self._dev["src_mask"][:nsl, :, None]
 
         # --- M2P cell-node tiles ------------------------------------------
         # Each w-list cell with points is a source tile of its p^d Chebyshev
         # nodes; its multipole coefficients are the tile's weights (rebuilt
-        # each matvec by one gather). Tile nw is the zero sentinel.
+        # each matvec by one gather). Tile nw is the zero sentinel. Above
+        # the node-tile budget the tree is gated: no tiles, and the M2P
+        # computes the nodes of the listed cells while it stages them.
         wc = self._w_sorted[:, 1]
         wc = np.unique(wc[self.tree.has_points[wc]]) if wc.size else wc
-        self._m2p_nw = nw = int(wc.size)
+        nw = int(wc.size)
+        self.m2p_cells = nw
+        self.nodetile_bytes = (nw + 1) * d * self.nnodes * (8 + 4)  # f64 tiles + f32 copy
+        budget = int(float(os.environ.get("FERREUS_RBF_TPU_NODETILE_BYTES", 1.5e9)))
+        self._m2p_tiles_gated = bool(nw) and self.nodetile_bytes > budget
+        if self._m2p_tiles_gated:
+            nw = 0
+            self._floats64["nodes_nd"] = self._tensor(self.nodes_nd)
+        self._m2p_nw = nw
+        record_event("fmm_tree", {
+            "points": int(self._points.shape[0]), "leaves": nsl, "smax": self.smax,
+            "p2m_bytes": self.p2m_bytes, "p2m_resident": "p2m_w" in self._floats64,
+            "m2p_cells": self.m2p_cells, "nodetile_bytes": self.nodetile_bytes,
+            "m2p_tiles_gated": self._m2p_tiles_gated})
         self._cell_to_wtile = None
         if nw:
             node_xyz = cheb.scale_nodes_to_cell(
@@ -379,7 +418,7 @@ class FmmTree:
         weights (with their derivatives when ``with_grads``)."""
         if reuse_key is not None and reuse_key in self._target_cache:
             binned = self._target_cache[reuse_key]
-            if with_grads and "l2p_dw" not in binned:
+            if with_grads and binned["l2p_resident"] and "l2p_dw" not in binned:
                 binned["l2p_dw"] = self._l2p_weights(binned, True)[1]
             return binned
 
@@ -423,9 +462,10 @@ class FmmTree:
         npos = nbr_off_c[rcell][:, None] + np.arange(u_max)[None, :]
         nbr_tab[nmask] = flat_srows[npos[nmask]]
 
-        # w list -> cell-tile table (Uw, rows) and per-row counts
+        # w list -> (Uw, rows) table and per-row counts: node-tile ids
+        # (sentinel nw), or global cell ids (sentinel num_cells) when gated
         wtab = wcnt = None
-        if self._cell_to_wtile is not None:
+        if self._cell_to_wtile is not None or self._m2p_tiles_gated:
             lo_w = np.searchsorted(self._w_sorted[:, 0], tcells_u)
             hi_w = np.searchsorted(self._w_sorted[:, 0], tcells_u, side="right")
             wpos = _concat_ranges(lo_w, hi_w - lo_w)
@@ -436,11 +476,14 @@ class FmmTree:
             if wcnt_c.size and wcnt_c.max() > 0:
                 woff_c = np.cumsum(wcnt_c) - wcnt_c
                 uw_max = int(wcnt_c.max())
-                wtab_r = np.full((ntl, uw_max), self._m2p_nw, np.int32)
+                gated = self._m2p_tiles_gated
+                wtab_r = np.full((ntl, uw_max), t.num_cells if gated else self._m2p_nw,
+                                 np.int32)
                 wcnt_row = wcnt_c[rcell]
                 wmask = np.arange(uw_max)[None, :] < wcnt_row[:, None]
                 wpos2 = woff_c[rcell][:, None] + np.arange(uw_max)[None, :]
-                wtab_r[wmask] = self._cell_to_wtile[wcat[wkeep][wpos2[wmask]]]
+                wcells = wcat[wkeep][wpos2[wmask]]
+                wtab_r[wmask] = wcells if gated else self._cell_to_wtile[wcells]
                 wtab = self._tensor(wtab_r.T)
                 wcnt = self._tensor(wcnt_row.astype(np.int32))
 
@@ -458,25 +501,37 @@ class FmmTree:
             "inv_flat": self._tensor(inv_flat),
             # (rows, T, d) target rows; pad slots repeat target 0
             torch.float64: {"tpts": self._tensor((targets - self._world_center)[tgt_idx])},
+            # L2P weights kept only within the budget (else per row chunk)
+            "l2p_resident": ntl * tmax * self.nnodes * 8 <= _WEIGHT_TABLE_BYTES,
         }
-        weights = self._l2p_weights(binned, with_grads)
-        if with_grads:
-            binned[torch.float64]["l2p_w"], binned["l2p_dw"] = weights
-        else:
-            binned[torch.float64]["l2p_w"] = weights
+        record_event("fmm_targets", {"targets": n, "rows": ntl,
+                                     "l2p_resident": binned["l2p_resident"]})
+        if binned["l2p_resident"]:
+            weights = self._l2p_weights(binned, with_grads)
+            if with_grads:
+                binned[torch.float64]["l2p_w"], binned["l2p_dw"] = weights
+            else:
+                binned[torch.float64]["l2p_w"] = weights
         if reuse_key is not None:
             self._target_cache[reuse_key] = binned
         return binned
 
-    def _l2p_weights(self, binned, with_grads):
+    def _l2p_weights(self, binned, with_grads, rows=slice(None)):
         """L2P anterpolation weights (rows, T, p^d) of a binned target set,
-        and with ``with_grads`` their derivatives (rows, T, d, p^d), f64."""
+        and with ``with_grads`` their derivatives (rows, T, d, p^d), f64,
+        for the row slice ``rows``."""
         f64 = self._floats64
-        tc = binned["tcells"]
+        tc = binned["tcells"][rows]
         return cheb.anterpolation_weights_torch(
-            binned[torch.float64]["tpts"], f64["cell_centers"][tc], f64["cell_lengths"][tc],
-            f64["nodes_t"], self.d, with_gradients=with_grads,
+            binned[torch.float64]["tpts"][rows], f64["cell_centers"][tc],
+            f64["cell_lengths"][tc], f64["nodes_t"], self.d, with_gradients=with_grads,
         )
+
+    def _chunk(self, per_item: int) -> int:
+        """Items per chunk of a chunked pass: the transient stays within
+        ``(1 << 23) * eval_chunk_size / 1024`` elements."""
+        elems = (1 << 23) * max(int(self.params.eval_chunk_size), 1) // 1024
+        return max(1, elems // max(per_item, 1))
 
     def _binned_floats(self, binned, dtype):
         if dtype not in binned:
@@ -499,7 +554,21 @@ class FmmTree:
         ncells = self.tree.num_cells
         nr = wt.shape[1]
         mult = wt.new_zeros((ncells + 1, self.nnodes, nr))  # row ncells = sink
-        mult[self._dev["leaf_cells"]] = torch.bmm(wt[: self.nsl], fs["p2m_w"]).transpose(1, 2)
+        leaves = self._dev["leaf_cells"]
+        if "p2m_w" in fs:
+            mult[leaves] = torch.bmm(wt[: self.nsl], fs["p2m_w"]).transpose(1, 2)
+        else:
+            # weights made in f64 and rounded to the pass's dtype, as the
+            # resident table's f32 copy is: both paths give the same sums
+            f64 = self._floats64
+            step = self._chunk(self.smax * self.nnodes)
+            for l0 in range(0, self.nsl, step):
+                sl = slice(l0, min(l0 + step, self.nsl))
+                w = cheb.anterpolation_weights_torch(
+                    f64["src_tiles"][sl].transpose(1, 2), f64["cell_centers"][leaves[sl]],
+                    f64["cell_lengths"][leaves[sl]], f64["nodes_t"], self.d,
+                ) * self._dev["src_mask"][sl, :, None]
+                mult[leaves[sl]] = torch.bmm(wt[sl], w.to(wt.dtype)).transpose(1, 2)
         for ch, pa in self._dev["m2m_groups"]:
             contrib = torch.einsum("opq,ocqr->ocpr", fs["m2m_ops"], mult[ch])
             mult.index_add_(0, pa.reshape(-1), contrib.reshape(-1, self.nnodes, nr))
@@ -532,36 +601,72 @@ class FmmTree:
             local.index_add_(0, ch.reshape(-1), contrib.reshape(-1, nn, nr))
         return local[:ncells]
 
+    def _l2p(self, binned, fs, local, with_grads=False):
+        """L2P at a binned target set: values (rows, T, r) and, with
+        ``with_grads``, gradients (rows, T, d, r), in the dtype of ``fs``."""
+        bs = self._binned_floats(binned, fs["nodes_t"].dtype)
+        loc = local[binned["tcells"]]  # (rows, p^d, r)
+        rows, t, d = bs["tpts"].shape
+        nr = loc.shape[2]
+        if binned["l2p_resident"]:
+            vals = torch.bmm(bs["l2p_w"], loc)
+            if not with_grads:
+                return vals
+            # einsum("ltdp,lpr->ltdr") as one bmm over (T*d) weight rows
+            return vals, torch.bmm(binned["l2p_dw"].flatten(1, 2), loc).view(rows, t, d, nr)
+        # weights made in f64 per row chunk and rounded to the pass's dtype
+        vals = loc.new_empty((rows, t, nr))
+        grads = loc.new_empty((rows, t, d, nr)) if with_grads else None
+        step = self._chunk(t * self.nnodes * (1 + (d if with_grads else 0)))
+        for r0 in range(0, rows, step):
+            sl = slice(r0, r0 + step)
+            w = self._l2p_weights(binned, with_grads, sl)
+            if with_grads:
+                w, dw = w
+                grads[sl] = torch.bmm(dw.flatten(1, 2), loc[sl]).view(-1, t, d, nr)
+            vals[sl] = torch.bmm(w.to(loc.dtype), loc[sl])
+        return (vals, grads) if with_grads else vals
+
     def _leaf(self, binned, dtype, fs, local, mult, wt):
         """L2P + near field (P2P, M2P) at a binned target set -> (n, nrhs)."""
         bs = self._binned_floats(binned, dtype)
         nr = local.shape[2]
-        vals = torch.bmm(bs["l2p_w"], local[binned["tcells"]])  # (rows, T, r)
+        vals = self._l2p(binned, fs, local)  # (rows, T, r)
         vals += near_field(bs["tpts"], fs["src_tiles"], wt, binned["nbr"],
                            kparams=self.kernel_params)
-        if binned["wtab"] is not None:
+        if binned["wtab"] is not None and self._m2p_tiles_gated:
+            vals += near_field_cells(bs["tpts"], binned["wtab"], binned["wcnt"],
+                                     *self._cell_geometry(), mult, kparams=self.kernel_params)
+        elif binned["wtab"] is not None:
             vals += near_field(bs["tpts"], fs["node_tiles"], self._m2p_tiles(mult),
                                binned["wtab"], binned["wcnt"], kparams=self.kernel_params)
         return vals.reshape(-1, nr)[binned["inv_flat"]]
+
+    def _cell_geometry(self):
+        """(centres, lengths, reference nodes), float64, for the gated M2P."""
+        f64 = self._floats64
+        return f64["cell_centers"], f64["cell_lengths"], f64["nodes_nd"]
 
     def _leaf_with_grads(self, binned):
         """f64 L2P + near field with target gradients against the kept
         locals -> (n, nrhs) values and (n, nrhs * d) gradients."""
         fs = self._floats64
         tpts = binned[torch.float64]["tpts"]
-        rows, t, d = tpts.shape
+        d = tpts.shape[2]
         nr = self._local.shape[2]
-        loc = self._local[binned["tcells"]]  # (rows, p^d, r)
-        vals = torch.bmm(binned[torch.float64]["l2p_w"], loc)
-        # einsum("ltdp,lpr->ltrd") as one bmm over (T*d) weight rows
-        grads = torch.bmm(binned["l2p_dw"].flatten(1, 2), loc).view(rows, t, d, nr)
-        grads = grads.transpose(2, 3).contiguous()
-        legs = [(fs["src_tiles"], self._weight_tiles, binned["nbr"], None)]
-        if binned["wtab"] is not None:
-            legs.append((fs["node_tiles"], self._m2p_tiles(self._multipole), binned["wtab"],
-                         binned["wcnt"]))
-        for src, w, nbr, cnt in legs:
-            v, g = near_field_grad(tpts, src, w, nbr, cnt, kparams=self.kernel_params)
+        vals, grads = self._l2p(binned, fs, self._local, with_grads=True)
+        grads = grads.transpose(2, 3).contiguous()  # (rows, T, r, d)
+        kp = self.kernel_params
+        legs = [near_field_grad(tpts, fs["src_tiles"], self._weight_tiles, binned["nbr"],
+                                kparams=kp)]
+        if binned["wtab"] is not None and self._m2p_tiles_gated:
+            legs.append(near_field_cells_grad(tpts, binned["wtab"], binned["wcnt"],
+                                              *self._cell_geometry(), self._multipole,
+                                              kparams=kp))
+        elif binned["wtab"] is not None:
+            legs.append(near_field_grad(tpts, fs["node_tiles"], self._m2p_tiles(self._multipole),
+                                        binned["wtab"], binned["wcnt"], kparams=kp))
+        for v, g in legs:
             vals += v
             grads += g
         inv = binned["inv_flat"]

@@ -16,11 +16,22 @@ bucket is assembled and factored by one batched ``torch.linalg.cholesky_ex``
 on the device; the per-iteration solves are batched triangular solves.
 Factors may be held in f32: right-preconditioned *flexible* GMRES tolerates
 an inexact preconditioner.
+
+Each level sizes its leaves by a memory budget for its stored factors
+(``FERREUS_RBF_TPU_DDM_MEM_GB``, default 5.0, the JAX package's variable):
+leaves halve from ``leaf_threshold`` down to a 128-point floor until the
+level's factors fit its share. When even the floor does not fit, or when
+``FERREUS_RBF_TPU_DDM_RECOMPUTE=1`` and the cap is below the user's leaf,
+the level keeps full-size leaves and stores no factors: every application
+assembles, factors and solves them (recompute-from-points), dropping for
+that application any domain whose block is not SPD.
+``FERREUS_RBF_TPU_DDM_RECOMPUTE=0`` keeps shrink-to-fit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import scipy.linalg
@@ -36,7 +47,7 @@ from ..ops.polynomials import (
     get_lagrange_coefficients,
 )
 from ..utils.common import farthest_point_sampling, get_cheb_cube_scaling_factors
-from ..utils.timing import traced_stage
+from ..utils.timing import record_event, traced_stage
 from .domain import Domain, _rank_from_pivoted_qr
 
 
@@ -57,10 +68,18 @@ class Level:
         self.leaf_plans: list[LeafPlan] = []
         self.buckets: list[dict] = []  # device solve plan, one per (S, k)
         self.coarse_domain: Domain | None = None
+        self.leaf_threshold = 0  # this level's leaf size (memory-budget sizing)
+        self.recompute = False  # factors rebuilt per application, none stored
 
 
 def _next_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _factor_chunk(s_pad: int) -> int:
+    """Domains per factor call: the assembly temporaries scale as nb * S^2
+    (A, the QTAQ products and the Cholesky workspace, ~2 GB per chunk)."""
+    return max(1, int(2e9 // (s_pad * s_pad * 8 * 6)))
 
 
 def _leaf_qtaq_structure(points, indices, internal_mask, settings):
@@ -126,6 +145,16 @@ def factor_bucket(pts, mask, q_top, *, kparams, nugget, k, dtype):
     return chol, failed
 
 
+def _factor_drop_failed(pts, mask, q_top, scatter_idx, n_out, **kw):
+    """Factor one chunk of a recompute bucket; a domain whose block is not
+    SPD even shifted gets an identity factor and scatters into the sink row
+    ``n_out``, so it adds nothing to this application."""
+    chol, failed = factor_bucket(pts, mask, q_top, **kw)
+    eye = torch.eye(chol.shape[1], dtype=chol.dtype, device=chol.device)
+    chol = torch.where(failed[:, None, None], eye, chol)
+    return chol, torch.where(failed[:, None], n_out, scatter_idx)
+
+
 def solve_bucket(residual, bucket, n_out):
     """Batched local solves of one bucket; returns (n_out, nrhs) with the
     internal-point coefficients filled (disjoint across domains)."""
@@ -160,18 +189,42 @@ class DDMTree:
         self.factor_dtype = factor_dtype
         self.device = torch.device(device)
         self.levels: list[Level] = []
+        self._pts_dev = torch.as_tensor(self.points, device=self.device)
         self._build()
+
+    def _leaf_threshold_for(self, m: int) -> tuple[int, bool]:
+        """(leaf threshold, recompute) of a level of ``m`` points: the
+        largest power-of-two halving of ``leaf_threshold`` (down to 128)
+        whose stored factors, ~ m * S * (1 + overlap)^2 * itemsize bytes,
+        fit 40% of ``FERREUS_RBF_TPU_DDM_MEM_GB``; the user's leaf with
+        recompute when even 128 does not fit (or, with
+        ``FERREUS_RBF_TPU_DDM_RECOMPUTE=1``, whenever the cap is below the
+        user's leaf). The JAX package's rule (``ddm.py:260-301``)."""
+        budget = float(os.environ.get("FERREUS_RBF_TPU_DDM_MEM_GB", "5.0")) * 1e9
+        bytes_per = 4 if self.factor_dtype == torch.float32 else 8
+        q2 = (1.0 + self.params.overlap_quota) ** 2
+        cap = int(0.4 * budget / max(m * q2 * bytes_per, 1.0))
+        leaf = self.params.leaf_threshold
+        rc_env = os.environ.get("FERREUS_RBF_TPU_DDM_RECOMPUTE", "auto")
+        if rc_env not in ("0", "false", "False") and (
+            cap < min(128, leaf) or (rc_env in ("1", "true", "True") and cap < leaf)
+        ):
+            return leaf, True
+        while leaf > 128 and leaf > cap:
+            leaf //= 2
+        return leaf, False
 
     # -------------------------------------------------------------- build
     def _build(self):
         pts = self.points
         n, d = pts.shape
         p = self.params
-        leaf_t = p.leaf_threshold
         active = np.arange(n)
 
         while active.size > p.coarse_threshold:
             level = Level(active)
+            leaf_t, level.recompute = self._leaf_threshold_for(active.size)
+            level.leaf_threshold = leaf_t
             # --- recursive median split (FIFO, like the reference) -------
             with traced_stage("ddm_split"):
                 queue = [(active, self._extents_of(active))]
@@ -250,6 +303,9 @@ class DDMTree:
             level.leaf_plans = plans
             with traced_stage("ddm_factorise"):
                 self._factorise_level(level)
+            record_event("ddm_level", {
+                "level": len(self.levels), "points": int(active.size), "leaves": nleaves,
+                "leaf_threshold": leaf_t, "recompute": level.recompute})
             self.levels.append(level)
             active = np.sort(np.concatenate(coarse_all))
 
@@ -268,7 +324,8 @@ class DDMTree:
 
     # ---------------------------------------------------------- device plan
     def _factorise_level(self, level: Level):
-        """Group leaves into (S, k) buckets; batched factor on the device."""
+        """Group leaves into (S, k) buckets; batched factor on the device
+        (a recompute level stores its buckets without factors)."""
         kparams = self.settings.kernel_params()
         groups = {}
         for plan in level.leaf_plans:
@@ -277,7 +334,7 @@ class DDMTree:
 
         n_out = self.points.shape[0] + self.settings.basis_size
         dev = self.device
-        pts_d = torch.as_tensor(self.points, device=dev)
+        pts_d = self._pts_dev
         for (s_pad, k), plans in groups.items():
             nb = len(plans)
             pts_idx = np.zeros((nb, s_pad), np.int64)
@@ -294,8 +351,14 @@ class DDMTree:
             mask_d = torch.as_tensor(mask, device=dev)
             q_top_d = torch.as_tensor(q_top, device=dev)
             pts_idx_d = torch.as_tensor(pts_idx, device=dev)
-            # factor in batch chunks: the assembly temporaries scale as nb*S^2
-            chunk = max(1, int(2e9 // (s_pad * s_pad * 8 * 6)))
+            # internal rows scatter to their point; the rest to the sink n_out
+            scatter_d = torch.as_tensor(np.where(internal & mask, pts_idx, n_out), device=dev)
+            bucket = {"pts_idx": pts_idx_d, "mask": mask_d, "q_top": q_top_d, "k": k,
+                      "scatter_idx": scatter_d}
+            level.buckets.append(bucket)
+            if level.recompute:
+                continue
+            chunk = _factor_chunk(s_pad)
             chol = torch.empty((nb, s_pad - k, s_pad - k), dtype=self.factor_dtype, device=dev)
             failed = torch.empty(nb, dtype=torch.bool, device=dev)
             for lo in range(0, nb, chunk):
@@ -307,16 +370,7 @@ class DDMTree:
             bad = np.nonzero(failed.cpu().numpy())[0]
             if bad.size:
                 self._host_refactor(plans, chol, bad, k)
-            # internal rows scatter to their point; the rest to the sink n_out
-            scatter = np.where(internal & mask, pts_idx, n_out)
-            level.buckets.append({
-                "pts_idx": pts_idx_d,
-                "mask": mask_d,
-                "q_top": q_top_d,
-                "chol": chol,
-                "k": k,
-                "scatter_idx": torch.as_tensor(scatter, device=dev),
-            })
+            bucket["chol"] = chol
 
     def _host_refactor(self, plans, chol, bad, k):
         """Host rescue for non-SPD leaves: dense Cholesky with a growing
@@ -355,8 +409,30 @@ class DDMTree:
         """All leaf solves of one level; returns internal-row coefficients."""
         n_out = residual.shape[0]
         out = residual.new_zeros((n_out, residual.shape[1]))
-        for bucket in self.levels[level_idx].buckets:
-            out += solve_bucket(residual, bucket, n_out)
+        level = self.levels[level_idx]
+        for bucket in level.buckets:
+            if level.recompute:
+                out += self._solve_recompute_bucket(residual, bucket, n_out)
+            else:
+                out += solve_bucket(residual, bucket, n_out)
+        return out
+
+    def _solve_recompute_bucket(self, residual, bucket, n_out):
+        """Assemble, factor and solve one bucket that stores no factors, in
+        batch chunks whose assembly and factor transients stay ~2 GB."""
+        kw = dict(kparams=self.settings.kernel_params(), nugget=self.settings.nugget,
+                  k=bucket["k"], dtype=self.factor_dtype)
+        nb, s_pad = bucket["pts_idx"].shape
+        chunk = _factor_chunk(s_pad)
+        out = residual.new_zeros((n_out, residual.shape[1]))
+        for lo in range(0, nb, chunk):
+            part = {key: bucket[key][lo : lo + chunk]
+                    for key in ("pts_idx", "mask", "q_top", "scatter_idx")}
+            part["chol"], part["scatter_idx"] = _factor_drop_failed(
+                self._pts_dev[part["pts_idx"]], part["mask"], part["q_top"],
+                part["scatter_idx"], n_out, **kw)
+            part["k"] = bucket["k"]
+            out += solve_bucket(residual, part, n_out)
         return out
 
     def solve_coarse(self, residual, add_poly: bool):

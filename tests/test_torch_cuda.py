@@ -1,4 +1,4 @@
-"""The port on the CUDA card: kernels H1/H2/H3 and the device path.
+"""The port on the CUDA card: kernels H1-H4 and the device path.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX (the machine with the card has none), so run it there without the
@@ -157,3 +157,88 @@ def test_iterative_fit_on_card():
     assert nf.LAUNCHES["near_field_f32"] > 0 and nf.LAUNCHES["near_field_f64"] > 0
     resid = np.max(np.abs(rbfi.evaluate_at_source(True) - vals))
     assert resid < 5e-6, resid
+
+
+def _cell_operands(rng, cuda, dtype):
+    """H4 operands: 40 rows of 100 targets over 9 listed cells of 50 (p = 7,
+    343 nodes), sentinel cells, a count-0 row and targets on cell nodes."""
+    from ferreus_rbf_tpu_torch.ops.fmm import cheb
+
+    rows, t, u, ncells = 40, 100, 9, 50
+    nodes = cheb.nodes_tensor_product(cheb.chebyshev_nodes(7), 3)
+    centers = rng.random((ncells, 3)) - 0.5
+    lengths = 0.05 + 0.1 * rng.random(ncells)
+    cells = rng.integers(0, ncells, (u, rows)).astype(np.int32)
+    cells[u - 1, ::2] = ncells  # sentinel cells
+    cnt = rng.integers(0, u + 1, rows).astype(np.int32)
+    cnt[0] = 0
+    tgt = rng.random((rows, t, 3)) - 0.5
+    c = cells[0, 1]
+    tgt[1, :10] = centers[c] + (lengths[c] * 0.5) * nodes[:10]  # on cell nodes
+    mult = rng.standard_normal((ncells, nodes.shape[0], 3))
+    dev = lambda a, dt=torch.float64: torch.as_tensor(a).to(cuda, dt)  # noqa: E731
+    return (dev(tgt, dtype), dev(cells, torch.int32), dev(cnt, torch.int32), dev(centers),
+            dev(lengths), dev(nodes), dev(mult, dtype))
+
+
+@pytest.mark.parametrize("name", ["LinearRbf", "ThinPlateSplineRbf", "Spheroidal5Rbf"])
+def test_cells_kernel_matches_plain(cuda, name):
+    """H4 (f32, f64 and gradients) against its plain version."""
+    kp = _params(name)
+    for dtype, grad in ((torch.float32, False), (torch.float64, False), (torch.float64, True)):
+        ops = _cell_operands(np.random.default_rng(9), cuda, dtype)
+        key = ("near_field_cells_grad_f64" if grad else
+               "near_field_cells_f32" if dtype == torch.float32 else "near_field_cells_f64")
+        before = nf.LAUNCHES[key]
+        fn = nf.near_field_cells_grad if grad else nf.near_field_cells
+        plain = nf.near_field_cells_grad_plain if grad else nf.near_field_cells_plain
+        got, want = fn(*ops, kparams=kp), plain(*ops, kparams=kp)
+        assert nf.LAUNCHES[key] == before + 1
+        for g, w in zip(got, want) if grad else ((got, want),):
+            assert torch.isfinite(g).all()
+            assert _rel(g, w) < TOL[dtype]
+            assert float(g[0].abs().max()) == 0.0  # the count-0 row
+
+
+def test_cells_kernel_raises_on_bad_operands(cuda):
+    """A bad operand raises; the wrapper never falls back to the plain
+    version on a CUDA tensor."""
+    tgt, cells, cnt, centers, lengths, nodes, mult = _cell_operands(
+        np.random.default_rng(10), cuda, torch.float64)
+    kp = _params("LinearRbf")
+    before = dict(nf.LAUNCHES)
+    with pytest.raises(ValueError):  # one operand on the CPU
+        nf.near_field_cells(tgt, cells, cnt, centers, lengths, nodes, mult.cpu(), kparams=kp)
+    with pytest.raises(TypeError):  # float32 geometry
+        nf.near_field_cells(tgt, cells, cnt, centers.float(), lengths, nodes, mult,
+                            kparams=kp)
+    with pytest.raises(ValueError):  # mult rows do not match the cells
+        nf.near_field_cells(tgt, cells, cnt, centers, lengths, nodes, mult[:-1], kparams=kp)
+    assert nf.LAUNCHES == before
+
+
+def test_gated_tree_matches_ungated_on_card(cuda, monkeypatch):
+    """The clustered tree with the node-tile gate forced: its f32 and f64
+    matvecs and gradients on the card equal the ungated tree's, and only
+    the gated tree launches H4."""
+    rng = np.random.default_rng(3)
+    blob = rng.normal(scale=0.02, size=(2000, 3)) + 0.25
+    pts = np.clip(np.concatenate([blob, rng.random((500, 3))]), 0, 1)
+    params = frt.FmmParams(interpolation_order=4, max_points_per_cell=64, epsilon=1e-4)
+    w = rng.standard_normal((pts.shape[0], 2))
+    out = {}
+    for gate in ("default", "0"):
+        if gate == "0":
+            monkeypatch.setenv("FERREUS_RBF_TPU_NODETILE_BYTES", "0")
+        tree = FmmTree(pts, 4, _params("Spheroidal5Rbf"), adaptive_tree=True,
+                       sparse=True, params=params, device=cuda)
+        assert tree._m2p_tiles_gated == (gate == "0")
+        tree.prepare_targets(pts, "src")
+        nf.reset_launches()
+        wd = torch.as_tensor(w, device=cuda)
+        out[gate] = [tree.evaluate_device(wd, "src", prec).cpu() for prec in ("f32", "f64")]
+        out[gate] += [torch.as_tensor(x) for x in tree.evaluate_with_gradients(w, pts[:300])]
+        cells = sum(nf.LAUNCHES[k] for k in nf.LAUNCHES if k.startswith("near_field_cells"))
+        assert cells == (3 if gate == "0" else 0)
+    for (got, want), tol in zip(zip(out["0"], out["default"]), (1e-5, 1e-12, 1e-12, 1e-12)):
+        assert _rel(got, want) < tol
