@@ -6,14 +6,18 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); build the CUDA near-field
-   kernels from ``ferreus_rbf_tpu_torch/csrc`` with nvcc and print ptxas'
-   registers and spills per kernel;
+   kernels from ``ferreus_rbf_tpu_torch/csrc`` with nvcc, print the build
+   seconds and ptxas' registers and spills per kernel (H1/H2 per dtype and
+   rhs block over the ten kernel types);
 2. kernel vs plain PyTorch version for all ten kernel types, f32 (H1) and
    f64 (H2), and the f64 gradient kernel (H3), with and without per-row
    counts, with sentinel entries, a row of count 0 and (H3) targets that
-   are exact copies of sources; then the cell-node kernels H4 (f32, f64,
-   gradients) the same way, with sentinel cells and targets that coincide
-   with cell nodes;
+   are exact copies of sources; H1/H2 again with live counts on a skewed
+   list (one row of 216 tiles, the rest at most 8), rows of 0, 1, 9 or 128
+   live targets and tiles of 0 to S live sources, nrhs {1, 2, 8}, two
+   launches bitwise equal and dead slots 0; then the cell-node kernels H4
+   (f32, f64, gradients) the same way, with sentinel cells and targets
+   that coincide with cell nodes;
 3. config-2 matvec: 100k uniform 3-D points, LinearRbf, p = 5, 8 RHS,
    uniform tree, at f32 and f64, against a dense f64 oracle on 1,024
    targets; median of 5 timed matvecs;
@@ -22,7 +26,9 @@ Phases (any failure raises and the script exits non-zero):
    span / 4, default Params), evaluation at the sources and on a 64^3
    grid, then ``evaluate_with_gradients`` on the same grid, checked
    against the values and against a dense f64 gradient on 1,024 grid
-   points, with its peak device memory;
+   points, with its peak device memory; the fit's near-field calls per leg
+   (P2P, M2P, P2L) and precision; H1/H2/H3 timed on the fit's P2P, M2P and
+   P2L legs (H3: P2P, M2P) with their live pair rates and live shares;
 5. config-2 gradients (the JAX bench's gradient cell): 100k uniform points,
    Spheroidal5, p = 5, 2 RHS, adaptive sparse tree, ``evaluate_with_gradients``
    at the sources against value-only ``evaluate`` and a dense f64 oracle;
@@ -36,7 +42,10 @@ Phases (any failure raises and the script exits non-zero):
    stages, the solver's residual and refinement rounds, the DDM's
    per-level leaf sizes, ``evaluate_at_source`` against the values, a
    dense f64 oracle at 1,024 sources, peak device memory, and whether the
-   P2M/L2P weight budget switched;
+   P2M/L2P weight budget switched; the fit's near-field calls per leg, and
+   H1/H2 timed on the fit's own last operands of each neighbour table (P2P
+   and M2P of "__all__" and of each DDM level set, P2L) against the plain
+   version, with the table's calls in the fit;
 8. the M2P node-tile gate at 1M: phase 7's weights on one tree with the
    gate at its default and one with ``FERREUS_RBF_TPU_NODETILE_BYTES=0``
    (gated, M2P on H4): f32 and f64 matvecs and gradients at 4,096 sources
@@ -53,6 +62,7 @@ M2P for H4), and its bound; the last line is ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -131,15 +141,17 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
 
 
-def kernel_vs_plain(nf, kparams, tgt, src, w, nbr, cnt, grad=False):
+def kernel_vs_plain(nf, kparams, tgt, src, w, nbr, cnt, grad=False, counts=None):
     """(relative error, max |diff|) of the kernel against its plain
-    version; for H3 the worse of values and gradients."""
+    version; for H3 the worse of values and gradients. ``counts`` holds
+    H1/H2's live counts (tcnt, scnt)."""
+    counts = counts or {}
     if grad:
         got = nf.near_field_grad(tgt, src, w, nbr, cnt, kparams=kparams)
         want = nf.near_field_grad_plain(tgt, src, w, nbr, cnt, kparams=kparams)
     else:
-        got = (nf.near_field(tgt, src, w, nbr, cnt, kparams=kparams),)
-        want = (nf.near_field_plain(tgt, src, w, nbr, cnt, kparams=kparams),)
+        got = (nf.near_field(tgt, src, w, nbr, cnt, kparams=kparams, **counts),)
+        want = (nf.near_field_plain(tgt, src, w, nbr, cnt, kparams=kparams, **counts),)
     torch.cuda.synchronize()
     if not all(torch.isfinite(x).all() for x in want):
         raise AssertionError("plain near field is not finite")
@@ -213,6 +225,56 @@ def phase_kernels(nf, kt_mod, dev):
     for dtype, err in worst.items():
         log(f"phase 2: 10 kernel types x counts x nrhs {{1,8}}, {dtype}: "
             f"worst relative error {err:.3e} (bound {TOL[dtype]:.0e})")
+
+    # H1/H2 with live counts: one row lists 216 tiles, the rest at most 8;
+    # rows of 0, 1, 9 or 128 live targets; tiles of 0 to S live sources
+    ntiles = 400
+    scnt = torch.randint(0, s + 1, (ntiles + 1,), generator=g, dtype=torch.int32)
+    scnt[:2] = torch.tensor([0, s], dtype=torch.int32)
+    scnt[ntiles] = 0
+    u = 216
+    nbr = torch.randint(0, ntiles, (u, rows), generator=g, dtype=torch.int32)
+    nbr[u - 1, ::2] = ntiles
+    nbr[:, 1] = torch.randperm(ntiles, generator=g)[:u].int()
+    cnt = torch.randint(0, 9, (rows,), generator=g, dtype=torch.int32)
+    cnt[:2] = torch.tensor([0, u], dtype=torch.int32)
+    choice = torch.tensor([0, 1, 9, 128], dtype=torch.int32)
+    tcnt = choice[torch.randint(0, 4, (rows,), generator=g)]
+    tcnt[1] = 128
+    src = torch.rand((ntiles + 1, 3, s), generator=g, dtype=torch.float64) - 0.5
+    slot_live = torch.arange(s)[None, None, :] < scnt.long()[:, None, None]
+    lists = [nf.work_items(*(x.to(d) for x in (nbr, cnt, tcnt, scnt)), t=t, s=s, l1=ntiles + 1)
+             for d in (dev, torch.device("cpu"))]
+    if not (all(torch.equal(a.cpu(), b) for a, b in zip(lists[0][:3], lists[1][:3]))
+            and lists[0].nparts == lists[1].nparts):
+        raise AssertionError("the work list built on the card is not the CPU's")
+    worst = {}
+    for nrhs in (1, 2, 8):
+        w = torch.randn((ntiles + 1, nrhs, s), generator=g, dtype=torch.float64)
+        w = torch.where(slot_live, w, 0.0)
+        for kt in kt_mod.KernelType:
+            kw = {"base_range": 1.0, "total_sill": 0.7} if "Spheroidal" in kt.value else {}
+            kp = kt_mod.KernelParams(kt, **kw)
+            for dtype in (torch.float32, torch.float64):
+                ops = [x.to(dev, dtype) for x in (tgt, src, w)] + [nbr.to(dev), cnt.to(dev)]
+                counts = {"tcnt": tcnt.to(dev), "scnt": scnt.to(dev)}
+                err, _ = kernel_vs_plain(nf, kp, *ops, counts=counts)
+                key = (kt.value, str(dtype).split(".")[-1], nrhs)
+                if not err <= TOL[dtype]:
+                    raise AssertionError(f"live counts, kernel vs plain {key}: {err:.3e}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                out = nf.near_field(*ops, kparams=kp, **counts)
+                again = nf.near_field(*ops, kparams=kp, **counts)
+                dead = torch.arange(t, device=dev)[None, :] >= counts["tcnt"][:, None]
+                if not torch.equal(out, again):
+                    raise AssertionError(f"live counts {key}: two launches differ")
+                if float(out[dead].abs().max()) != 0.0 or float(out[0].abs().max()) != 0.0:
+                    raise AssertionError(f"live counts {key}: a dead slot is not 0")
+    for dtype, err in worst.items():
+        log(f"phase 2: live counts (a 216-tile row, tcnt in {{0,1,9,128}}, scnt 0..{s}), "
+            f"10 kernel types x nrhs {{1,2,8}}, {dtype}: worst relative error {err:.3e} "
+            f"(bound {TOL[dtype]:.0e}); two launches bitwise equal, dead slots 0; the work "
+            f"list built on the card equals the CPU's")
 
     # H3: values and gradients, f64; some targets are exact copies of sources
     tgt64 = tgt.clone()
@@ -309,57 +371,156 @@ def phase_kernels_cells(nf, kt_mod, dev):
             f"(bound {TOL[torch.float32 if key == 'float32' else f64]:.0e})")
 
 
-def time_near_field(nf, tree, binned, dtype, kparams, nrhs, g, grad=False):
-    """Kernel and plain-version times (ms), errors and bounds on a tree's
-    own P2P and M2P operands (H3 when ``grad``)."""
+def tree_legs(tree, key, dtype, nrhs, g, with_p2l=True):
+    """A tree's own near-field legs at its binned target set ``key``, with
+    random weights: {leg: (operands, live counts)}. P2P and M2P at the set,
+    P2L at the tree's cells. The counts (live target slots per row, live
+    source slots per tile) are derived from the binning and the source
+    mask, which every version of ``FmmTree`` keeps (``near_field_legs.py``
+    runs this on another tree of the package too)."""
+    binned = tree._target_cache[key]
     fs = tree._floats(dtype)
-    bs = tree._binned_floats(binned, dtype)
-    rows, t, _ = bs["tpts"].shape
-    tlive = torch.bincount(binned["inv_flat"] // t, minlength=rows)
-    slive = {"p2p": tree._dev["src_mask"].sum(1)}
+    tpts = tree._binned_floats(binned, dtype)["tpts"]
+    dev = tree.device
+    mask = tree._dev["src_mask"]
+    tcnt = torch.bincount(binned["inv_flat"] // tpts.shape[1], minlength=tpts.shape[0]).int()
+    scnt = mask.sum(1).int()
     w = torch.randn((tree.nsl + 1, nrhs, tree.smax), generator=g, dtype=torch.float64)
-    w[-1] = 0.0
-    w = w.to(tree.device, dtype)
-    p2p = (bs["tpts"], fs["src_tiles"], w, binned["nbr"], None)
-    out = {"p2p": p2p}
+    w = torch.where(mask[:, None, :].cpu(), w, 0.0).to(dev, dtype)
+    legs = {"p2p": ((tpts, fs["src_tiles"], w, binned["nbr"], None),
+                    {"tcnt": tcnt, "scnt": scnt})}
     if binned["wtab"] is not None:
         mt = torch.randn((tree._m2p_nw + 1, nrhs, tree.nnodes), generator=g,
                          dtype=torch.float64)
         mt[-1] = 0.0
-        out["m2p"] = (bs["tpts"], fs["node_tiles"], mt.to(tree.device, dtype),
-                      binned["wtab"], binned["wcnt"])
-        slive["m2p"] = torch.full((tree._m2p_nw + 1,), tree.nnodes, device=tree.device)
-        slive["m2p"][-1] = 0
+        legs["m2p"] = ((tpts, fs["node_tiles"], mt.to(dev, dtype), binned["wtab"],
+                        binned["wcnt"]), {"tcnt": tcnt})
+    if with_p2l and tree._dev["p2l_cells"].numel():
+        legs["p2l"] = ((fs["p2l_nodes"], fs["src_tiles"], w, tree._dev["p2l_nbr"],
+                        tree._dev["p2l_cnt"]), {"scnt": scnt})
+    return legs
+
+
+def live_slots(ops, counts):
+    """(live targets per row, live sources per tile) of a leg: its counts,
+    else every slot, the sentinel tile (the last) excluded."""
+    tgt, src = ops[:2]
+    tlive = counts.get("tcnt")
+    if tlive is None:
+        tlive = torch.full((tgt.shape[0],), tgt.shape[1], device=tgt.device)
+    slive = counts.get("scnt")
+    if slive is None:
+        slive = torch.full((src.shape[0],), src.shape[2], device=src.device)
+        slive[-1] = 0
+    return tlive, slive
+
+
+def timed(fn):
+    """(result, device ms) of one call of ``fn`` (CUDA events, no warm-up)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def time_leg(nf, kparams, dtype, ops, counts, grad=False, f32_scale=False, plain_reps=3):
+    """Kernel and plain-version times (ms), errors, bound and pair rates of
+    one leg; the bound counts the live pairs of ``counts``, which H1/H2 also
+    take (H3 takes none). H1/H2 must give two bitwise-equal launches.
+    ``f32_scale`` holds the error against the largest sum of |terms| (the
+    plain version on |w|; phi keeps one sign for LinearRbf), the scale of
+    rounding in a long f32 sum, instead of max |out|. ``plain_reps`` 0
+    times the plain version's one checking call instead of a warm mean."""
+    tgt, src, w, nbr, cnt = ops
+    tlive, slive = live_slots(ops, counts)
     kernel = nf.near_field_grad if grad else nf.near_field
     plain = nf.near_field_grad_plain if grad else nf.near_field_plain
-    res = {}
-    for name, ops in out.items():
-        tgt, src, _, nbr, cnt = ops
-        live = nbr.T.long() != src.shape[0] - 1
-        if cnt is not None:
-            live &= torch.arange(nbr.shape[0], device=nbr.device)[None, :] < cnt[:, None]
-        # (target slot, source slot) pairs the kernel evaluates, pads included
-        pairs = int(live.sum()) * tgt.shape[1] * src.shape[2]
-        rel, absd = kernel_vs_plain(nf, kparams, *ops, grad=grad)
-        if not rel <= TOL[dtype]:
-            raise AssertionError(f"{name} kernel vs plain: {rel:.3e} > {TOL[dtype]}")
-        ms = cuda_ms(lambda: kernel(*ops, kparams=kparams))
-        plain_ms = cuda_ms(lambda: plain(*ops, kparams=kparams), reps=3)
-        bound_ms, bound_by, flops = near_field_bound(
-            kparams, (tgt, nbr, cnt, src, ops[2]), tlive, slive[name], grad)
-        res[name] = {"rel": rel, "abs": absd, "ms": ms, "plain_ms": plain_ms,
-                     "gpairs_s": pairs / (ms * 1e-3) / 1e9, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12,
-                     "shape": [tuple(x.shape) for x in ops[:4]]}
-    return res
+    kw = {} if grad else counts
+    call = lambda fn, wt=w: fn(tgt, src, wt, nbr, cnt, kparams=kparams, **kw)  # noqa: E731
+    want, plain_ms = timed(lambda: call(plain))
+    got = call(kernel)
+    got, want = (got, want) if grad else ((got,), (want,))
+    if not all(torch.isfinite(x).all() for x in want + got):
+        raise AssertionError("the kernel or its plain version is not finite")
+    rel = max(rel_err(a, b) for a, b in zip(got, want))
+    absd = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    held = rel
+    if f32_scale:
+        held = absd / float(call(plain, w.abs()).abs().max())
+    if not held <= TOL[dtype]:
+        raise AssertionError(f"kernel vs plain: {held:.3e} > {TOL[dtype]}")
+    if not grad and not torch.equal(got[0], call(kernel)):
+        raise AssertionError("two launches on the same operands differ")
+    ms = cuda_ms(lambda: call(kernel))
+    if plain_reps:
+        plain_ms = cuda_ms(lambda: call(plain), reps=plain_reps)
+    bound_ms, bound_by, flops = near_field_bound(kparams, (tgt, nbr, cnt, src, w), tlive,
+                                                 slive, grad)
+    listed = nbr.T.long() != src.shape[0] - 1
+    if cnt is not None:
+        listed &= torch.arange(nbr.shape[0], device=nbr.device)[None, :] < cnt[:, None]
+    # (target slot, source slot) pairs a one-block-per-row loop runs, pads
+    # included, against the live pairs the bound counts
+    slot_pairs = int(listed.sum()) * tgt.shape[1] * src.shape[2]
+    live_src = (slive[nbr.T.long()] * listed).sum(1).double()
+    live_pairs = float((live_src * tlive.double()).sum())
+    src_share = float(live_src.sum()) / max(int(listed.sum()) * src.shape[2], 1)
+    return {"rel": rel, "abs": absd, "held": held, "ms": ms, "plain_ms": plain_ms,
+            "gpairs_s": slot_pairs / (ms * 1e-3) / 1e9,
+            "live_gpairs_s": live_pairs / (ms * 1e-3) / 1e9, "bound_ms": bound_ms,
+            "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12,
+            "tlive": float(tlive.sum()) / (tgt.shape[0] * tgt.shape[1]), "slive": src_share,
+            "shape": [tuple(x.shape) for x in ops[:4]]}
+
+
+def time_near_field(nf, tree, key, dtype, kparams, nrhs, g, grad=False):
+    """:func:`time_leg` on each of a tree's own legs at its binned set
+    ``key`` (H3 when ``grad``: P2P and M2P)."""
+    legs = tree_legs(tree, key, dtype, nrhs, g, with_p2l=not grad)
+    return {name: time_leg(nf, kparams, dtype, *leg, grad=grad) for name, leg in legs.items()}
 
 
 def log_near_field(prefix, name, r):
     for part, m in r.items():
         log(f"{prefix} {part} {name} shapes {m['shape']}: kernel {m['ms']:.4f} ms "
-            f"({m['gpairs_s']:.1f} Gpair/s, {m['tflops']:.2f} TFLOP/s), bound "
-            f"{m['bound_ms']:.4f} ms ({m['bound_by']}), plain {m['plain_ms']:.4f} ms, "
-            f"rel err {m['rel']:.3e}")
+            f"({m['live_gpairs_s']:.2f} live Gpair/s; {m['gpairs_s']:.1f} Gpair/s counting "
+            f"pads; {m['tflops']:.2f} TFLOP/s), bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}), plain {m['plain_ms']:.4f} ms, rel err {m['rel']:.3e} "
+            f"(held {m['held']:.3e}); live share of target slots {m['tlive']:.4f}, of "
+            f"listed source slots {m['slive']:.4f}")
+
+
+class LegCounter:
+    """While installed, wraps ``api.near_field`` (H1/H2, which ``FmmTree``
+    calls once per leg: P2L without tcnt, M2P with a count table, P2P
+    without one) to count its calls per (leg, dtype) and per neighbour
+    table, and keep each table's last operands; ``LAUNCHES`` still counts
+    the launches themselves."""
+
+    def __init__(self, api):
+        self.api, self.real = api, api.near_field
+        self.calls, self.last = {}, {}
+
+    def __enter__(self):
+        def counted(tgt, src, w, nbr, cnt=None, **kw):
+            leg = "p2l" if kw.get("tcnt") is None else "m2p" if cnt is not None else "p2p"
+            key = f"{leg}_{str(tgt.dtype).split('.')[-1]}"
+            self.calls[key] = self.calls.get(key, 0) + 1
+            counts = {k: v for k, v in kw.items() if k in ("tcnt", "scnt")}
+            calls = self.last.get((key, id(nbr)), (None, None, 0))[2]
+            self.last[(key, id(nbr))] = ((tgt, src, w, nbr, cnt), counts, calls + 1)
+            return self.real(tgt, src, w, nbr, cnt, **kw)
+
+        self.api.near_field = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.api.near_field = self.real
+
 
 
 def synced_median(fn, reps=5):
@@ -420,7 +581,7 @@ def phase_config2(frt, nf, dev):
         raise AssertionError(f"config-2 f32 tier error {tier:.3e}")
     g = torch.Generator(device="cpu").manual_seed(1)
     for name, dtype in (("near_field_f32", torch.float32), ("near_field_f64", torch.float64)):
-        r = time_near_field(nf, tree, tree._target_cache["src"], dtype, kp, nrhs, g)
+        r = time_near_field(nf, tree, "src", dtype, kp, nrhs, g)
         log_near_field(f"phase 3: config-2 nrhs {nrhs}", name, r)
 
 
@@ -459,6 +620,7 @@ def phase_albatite(frt, nf, timing, dev):
     """The fit path. Returns the fit, the dataset's extents and span, and
     the H1/H2/H3 kernel-line entries (launches of H3 are filled in by the
     isosurface phase)."""
+    from ferreus_rbf_tpu_torch.ops.fmm import api
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
 
     pts, vals = frt.csv_to_point_arrays(
@@ -474,8 +636,9 @@ def phase_albatite(frt, nf, timing, dev):
     torch.cuda.synchronize()
     nf.reset_launches()
     t0 = time.perf_counter()
-    rbfi = frt.RBFInterpolator(pts, vals, settings, device=dev)
-    torch.cuda.synchronize()
+    with LegCounter(api) as legs:
+        rbfi = frt.RBFInterpolator(pts, vals, settings, device=dev)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     timing.disable_global_tracer()
     fit_launches = dict(nf.LAUNCHES)
@@ -528,8 +691,9 @@ def phase_albatite(frt, nf, timing, dev):
         f"of max |grad| (bound {ALBATITE_GRAD_BOUND:.0e})")
     log(f"phase 4: 64^3 evaluate_with_gradients stages (s) "
         f"{json.dumps({k: round(v, 3) for k, v in grad_tracer.totals.items()})}")
-    log(f"phase 4: launches: fit {json.dumps(fit_launches)}; 64^3 evaluate_with_gradients "
-        f"{json.dumps(grad_launches)}; whole phase {json.dumps(launches)}")
+    log(f"phase 4: launches: fit {json.dumps(fit_launches)} (per leg {json.dumps(legs.calls)}); "
+        f"64^3 evaluate_with_gradients {json.dumps(grad_launches)}; whole phase "
+        f"{json.dumps(launches)}")
     if gg.shape != (64**3, 3) or not np.isfinite(gg).all():
         raise AssertionError("grid gradients not finite or of the wrong shape")
     if not (val_err <= 1e-12 and grad_err <= ALBATITE_GRAD_BOUND):
@@ -549,7 +713,7 @@ def phase_albatite(frt, nf, timing, dev):
     for name, dtype, grad in (("near_field_f32", torch.float32, False),
                               ("near_field_f64", torch.float64, False),
                               ("near_field_grad_f64", torch.float64, True)):
-        r = time_near_field(nf, tree, tree._target_cache["__all__"], dtype,
+        r = time_near_field(nf, tree, "__all__", dtype,
                             settings.kernel_params(), 1, g, grad=grad)
         log_near_field("phase 4: albatite", name, r)
         entries[name] = kernel_entry(name, launches[name], r["p2p"])
@@ -606,7 +770,7 @@ def phase_config2_gradients(nf, dev):
     if not launches["near_field_grad_f64"] > 0:
         raise AssertionError(f"H3 never launched in phase 5: {launches}")
     g = torch.Generator(device="cpu").manual_seed(3)
-    r = time_near_field(nf, tree, tree._target_cache["src"], torch.float64, kp, 2, g,
+    r = time_near_field(nf, tree, "src", torch.float64, kp, 2, g,
                         grad=True)
     log_near_field("phase 5: config-2 nrhs 2", "near_field_grad_f64", r)
 
@@ -708,8 +872,25 @@ def dense_oracle(rbfi, idx, dev):
     return out.reshape(-1)
 
 
+def time_fit_legs(nf, kparams, legs):
+    """H1/H2 on the 1M fit's own last operands of every neighbour table (P2P
+    and M2P per target set, P2L), against the plain version (one call each;
+    f32 held against the sum of |terms|), with the table's calls in the fit
+    and the live share of its target slots: launches x time per leg."""
+    for (key, _), (ops, counts, calls) in sorted(
+            legs.last.items(), key=lambda kv: (kv[0][0], -kv[1][0][0].shape[0])):
+        tgt = ops[0]
+        m = time_leg(nf, kparams, tgt.dtype, ops, counts, f32_scale=tgt.dtype == torch.float32,
+                     plain_reps=0)
+        kernel = "near_field_f32" if tgt.dtype == torch.float32 else "near_field_f64"
+        log_near_field("phase 7: 1M fit", kernel,
+                       {f"{key.split('_')[0]} rows {tgt.shape[0]}, {calls} calls": m})
+
+
 def phase_config4(frt, nf, timing, dev, n=1_000_000):
     """Config 4: the 1M-point LinearRbf signed-distance fit, default Params."""
+    from ferreus_rbf_tpu_torch.ops.fmm import api
+
     pts, sd = synthetic_sd(n, seed=11)
     settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
     torch.cuda.synchronize()
@@ -717,8 +898,9 @@ def phase_config4(frt, nf, timing, dev, n=1_000_000):
     tracer = timing.enable_global_tracer()
     nf.reset_launches()
     t0 = time.perf_counter()
-    rbfi = frt.RBFInterpolator(pts, sd, settings, device=dev)
-    torch.cuda.synchronize()
+    with LegCounter(api) as legs:
+        rbfi = frt.RBFInterpolator(pts, sd, settings, device=dev)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     timing.disable_global_tracer()
     launches = dict(nf.LAUNCHES)
@@ -736,12 +918,19 @@ def phase_config4(frt, nf, timing, dev, n=1_000_000):
     log(f"phase 7: DDM levels {json.dumps([strip(e) for e in events if e['event'] == 'ddm_level'])}")
     log(f"phase 7: FMM trees {json.dumps([strip(e) for e in events if e['event'] == 'fmm_tree'])}")
     log(f"phase 7: target sets {json.dumps([strip(e) for e in events if e['event'] == 'fmm_targets'])}")
-    log(f"phase 7: fit launches {json.dumps(launches)}; fit peak device memory {fit_peak_gb:.3f} GB")
+    log(f"phase 7: fit launches {json.dumps(launches)} (per leg {json.dumps(legs.calls)}); "
+        f"fit peak device memory {fit_peak_gb:.3f} GB")
+    time_fit_legs(nf, rbfi.interpolant_settings.kernel_params(), legs)
+    del legs
 
     vals = rbfi.point_values[:, 0]
+    tracer = timing.enable_global_tracer()
     t0 = time.perf_counter()
     pred = rbfi.evaluate_at_source(add_nugget=True)
     eval_s = time.perf_counter() - t0
+    timing.disable_global_tracer()
+    log(f"phase 7: evaluate_at_source stages (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
     scale = float(np.max(np.abs(vals)))
     rel = float(np.max(np.abs(pred - vals))) / scale
     idx = np.sort(np.random.default_rng(3).choice(vals.size, 1024, replace=False))
@@ -886,7 +1075,8 @@ def phase_gate(nf, dev, rbfi):
         if not held <= TOL[dtype]:
             raise AssertionError(f"{name} vs plain on the gated M2P: {held:.3e}")
         ms = cuda_ms(lambda: h4(*ops, kparams=kp))
-        leg_ms = cuda_ms(lambda: h123(*leg, kparams=kp))
+        counts = {} if grad else {"tcnt": ub["tcnt"]}
+        leg_ms = cuda_ms(lambda: h123(*leg, kparams=kp, **counts))
         chunk_ms = cuda_ms(lambda: h4(*chunk, kparams=kp))
         plain_ms = cuda_ms(lambda: plain(*ops, kparams=kp), reps=1)
         bound_ms, bound_by, flops = near_field_bound(kp, ops, tlive, slive, grad,
@@ -906,6 +1096,36 @@ def phase_gate(nf, dev, rbfi):
     return entries
 
 
+def log_ptxas(report):
+    """nvcc's ``-Xptxas -v`` report: registers and spill bytes per kernel;
+    the 80 H1/H2 instantiations (kernel type x dtype x NR) summed up per
+    (dtype, NR) over the ten kernel types."""
+    stats, entry = {}, "?"
+    for line in report.splitlines():
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            stats.setdefault(entry, {})["spill"] = sum(
+                int(tok) for tok in re.findall(r"(\d+) bytes spill", line))
+        elif "registers" in line:
+            stats.setdefault(entry, {})["regs"] = int(re.search(r"Used (\d+) registers",
+                                                                line).group(1))
+    groups = {}
+    for name, st in stats.items():
+        m = re.search(r"near_field_items_kernelILi(\d+)E([fd])Li(\d+)E", name)
+        if m is None:
+            log(f"phase 1: ptxas {name}: {st.get('regs')} registers, "
+                f"{st.get('spill', 0)} bytes of spills")
+            continue
+        key = ("f32" if m.group(2) == "f" else "f64", int(m.group(3)))
+        groups.setdefault(key, []).append((st.get("regs", 0), st.get("spill", 0)))
+    for (dtype, nr), vals in sorted(groups.items()):
+        regs = [v[0] for v in vals]
+        log(f"phase 1: ptxas near_field_items_kernel {dtype} NR={nr}, {len(vals)} kernel "
+            f"types: {min(regs)}-{max(regs)} registers, at most {max(v[1] for v in vals)} "
+            f"bytes of spills")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is false)")
@@ -923,16 +1143,10 @@ def main():
     print(card, flush=True)
     log(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
     nf.build()
-    log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
+    log(f"phase 1: kernels built in {nf.BUILD_INFO['seconds']:.2f} s "
         f"({nf.BUILD_INFO['path']})")
-    entry = "?"
-    for line in nf.BUILD_INFO["log"].splitlines():
-        if "entry function" in line:
-            entry = line.split("'")[1]
-        elif "registers" in line or "spill" in line:
-            log(f"phase 1: ptxas {entry}: {line.strip()}")
+    log_ptxas(nf.BUILD_INFO["log"])
 
     phase_kernels(nf, kt_mod, dev)
     phase_kernels_cells(nf, kt_mod, dev)

@@ -329,6 +329,8 @@ class FmmTree:
         self._dev = {
             "src_orig": self._tensor(self.tree.point_order[self.src_bucket_idx], long),
             "src_mask": self._tensor(mask),
+            # live source slots per tile (the leading ones; 0 for the sentinel)
+            "src_scnt": self._tensor(mask.sum(1).astype(np.int32)),
             "leaf_cells": self._tensor(self.src_leaf_cells, long),
             "m2m_groups": [(self._tensor(c, long), self._tensor(p, long))
                            for c, p in self.m2m_groups],
@@ -495,6 +497,8 @@ class FmmTree:
         binned = {
             "ntargets": n,
             "tcells": self._tensor(tcells, torch.int64),
+            # live target slots per row (the leading ones)
+            "tcnt": self._tensor(rlen.astype(np.int32)),
             "nbr": self._tensor(nbr_tab.T),
             "wtab": wtab,
             "wcnt": wcnt,
@@ -594,7 +598,7 @@ class FmmTree:
         if self._dev["p2l_cells"].numel():
             local[self._dev["p2l_cells"]] += near_field(
                 fs["p2l_nodes"], fs["src_tiles"], wt, self._dev["p2l_nbr"],
-                self._dev["p2l_cnt"], kparams=self.kernel_params)
+                self._dev["p2l_cnt"], kparams=self.kernel_params, scnt=self._dev["src_scnt"])
 
         for ch, pa in self._dev["l2l_groups"]:
             contrib = torch.einsum("opq,ocpr->ocqr", fs["m2m_ops"], local[pa])
@@ -633,13 +637,15 @@ class FmmTree:
         nr = local.shape[2]
         vals = self._l2p(binned, fs, local)  # (rows, T, r)
         vals += near_field(bs["tpts"], fs["src_tiles"], wt, binned["nbr"],
-                           kparams=self.kernel_params)
+                           kparams=self.kernel_params, tcnt=binned["tcnt"],
+                           scnt=self._dev["src_scnt"])
         if binned["wtab"] is not None and self._m2p_tiles_gated:
             vals += near_field_cells(bs["tpts"], binned["wtab"], binned["wcnt"],
                                      *self._cell_geometry(), mult, kparams=self.kernel_params)
         elif binned["wtab"] is not None:
             vals += near_field(bs["tpts"], fs["node_tiles"], self._m2p_tiles(mult),
-                               binned["wtab"], binned["wcnt"], kparams=self.kernel_params)
+                               binned["wtab"], binned["wcnt"], kparams=self.kernel_params,
+                               tcnt=binned["tcnt"])
         return vals.reshape(-1, nr)[binned["inv_flat"]]
 
     def _cell_geometry(self):

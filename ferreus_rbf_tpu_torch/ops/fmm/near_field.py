@@ -32,9 +32,18 @@ cell's sources are its p^d Chebyshev nodes, ``centers[c] + (lengths[c] *
 (bitwise the stored node tiles), weighted by its multipole coefficients
 ``mult[c, j, k]`` (ncells, p^d, nrhs). Nothing is gathered per matvec.
 
+:func:`near_field` also takes live counts: ``tcnt`` (R,) int32, the live
+target slots of each row (the leading ones), and ``scnt`` (L+1,) int32,
+the live source slots of each tile (the leading ones; 0 for the
+sentinel). No pair with a dead target or a dead source slot is computed,
+and dead target slots come out 0. Without them every slot is live.
+
 On a CUDA tensor :func:`near_field` launches the hand-written Hopper kernel
-(``csrc/near_field.cu``): ``near_field_f32`` (H1) or ``near_field_f64`` (H2);
-:func:`near_field_grad` launches ``near_field_grad_f64`` (H3);
+(``csrc/near_field.cu``): ``near_field_f32`` (H1) or ``near_field_f64`` (H2),
+over the call's work items (:func:`work_items`: each a row, a span of its
+live targets and a stretch of its live neighbour tiles of at most
+``_ITEM_SOURCES`` live sources), built once per neighbour table and kept
+on it; :func:`near_field_grad` launches ``near_field_grad_f64`` (H3);
 :func:`near_field_cells` launches ``near_field_cells_f32`` or
 ``near_field_cells_f64`` and :func:`near_field_cells_grad`
 ``near_field_cells_grad_f64`` (H4). Each launches its kernel or raises. On a
@@ -52,26 +61,32 @@ import os
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
+from ...utils.timing import traced_stage
 from ..kernels import KernelParams, kernel_code, make_kernel
 
-__all__ = ["LAUNCHES", "build", "near_field", "near_field_cells", "near_field_cells_grad",
-           "near_field_cells_grad_plain", "near_field_cells_plain", "near_field_grad",
-           "near_field_grad_plain", "near_field_plain", "reset_launches"]
+__all__ = ["LAUNCHES", "WorkItems", "build", "near_field", "near_field_cells",
+           "near_field_cells_grad", "near_field_cells_grad_plain", "near_field_cells_plain",
+           "near_field_grad", "near_field_grad_plain", "near_field_plain", "reset_launches",
+           "work_items"]
 
-# Launches of each CUDA kernel (incremented by the wrapper, nowhere else).
+# Launches of each CUDA kernel (incremented by the wrapper, nowhere else;
+# one per wrapper call, whatever the passes inside it).
 LAUNCHES = {"near_field_f32": 0, "near_field_f64": 0, "near_field_grad_f64": 0,
             "near_field_cells_f32": 0, "near_field_cells_f64": 0,
             "near_field_cells_grad_f64": 0}
 
 # C signature of each symbol: (input pointers, output pointers, ints,
-# doubles), then the spheroidal power and the stream. Tile kernels take
-# (tgt, src, w, nbr, cnt) and (R, Tn, d, ds, S, L1, U, nrhs, code); cell
-# kernels (tgt, cells, cnt, centers, lengths, nodes, mult) and
-# (R, Tn, d, P, ncells, U, nrhs, code). Gradient kernels add gout and far_grad.
-_SIGNATURES = {"near_field_f32": (5, 1, 9, 5), "near_field_f64": (5, 1, 9, 5),
+# doubles), then the spheroidal power and the stream. H1/H2 take (tgt,
+# src, w, items, entries, segtab, tcnt), (out, part) and (R, Tn, d, ds, S,
+# nitems, nspan, nrhs, code); H3 (tgt, src, w, nbr, cnt) and (R, Tn, d, ds,
+# S, L1, U, nrhs, code); cell kernels (tgt, cells, cnt, centers, lengths,
+# nodes, mult) and (R, Tn, d, P, ncells, U, nrhs, code). Gradient kernels
+# add gout and far_grad.
+_SIGNATURES = {"near_field_f32": (7, 2, 9, 5), "near_field_f64": (7, 2, 9, 5),
                "near_field_grad_f64": (5, 2, 9, 6),
                "near_field_cells_f32": (7, 1, 8, 5), "near_field_cells_f64": (7, 1, 8, 5),
                "near_field_cells_grad_f64": (7, 2, 8, 6)}
@@ -83,6 +98,11 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _PLAIN_BUDGET = 1 << 22
+# Target slots of one H1/H2 work item: the kernel's kSpan (32 lanes x 4).
+_SPAN = 128
+# Live source slots of one H1/H2 work item (a tile that alone holds more
+# is an item of its own). Set on the H100 from near_field_legs.py (PERF.md).
+_ITEM_SOURCES = 256
 _LOCK = threading.Lock()
 _LIB = None
 BUILD_INFO: dict = {}
@@ -157,8 +177,9 @@ def _check_common(tgt, nbr, cnt, tensors):
         raise ValueError("near_field operands must be contiguous")
 
 
-def _check(tgt, src, w, nbr, cnt):
-    _check_common(tgt, nbr, cnt, (tgt, src, w))
+def _check(tgt, src, w, nbr, cnt, tcnt=None, scnt=None):
+    counts = tuple(x for x in (tcnt, scnt) if x is not None)
+    _check_common(tgt, nbr, cnt, (tgt, src, w) + counts)
     if src.dtype != tgt.dtype or w.dtype != tgt.dtype:
         raise TypeError("tgt, src and w must share one dtype")
     if src.dim() != 3 or w.dim() != 3:
@@ -168,6 +189,116 @@ def _check(tgt, src, w, nbr, cnt):
         raise ValueError(f"need ds >= d, got d={tgt.shape[2]}, ds={ds}")
     if w.shape[0] != l1 or w.shape[2] != s:
         raise ValueError(f"w {tuple(w.shape)} does not match src {tuple(src.shape)}")
+    if any(x.dtype != torch.int32 for x in counts):
+        raise TypeError("tcnt and scnt must be int32")
+    if ((tcnt is not None and tuple(tcnt.shape) != (tgt.shape[0],))
+            or (scnt is not None and tuple(scnt.shape) != (l1,))):
+        raise ValueError("tcnt must be (R,) and scnt (L+1,)")
+
+
+class WorkItems(NamedTuple):
+    """The work list of one H1/H2 call (int32 tensors).
+
+    ``entries`` (E, 2): each row's live neighbour entries in list order
+    (entries past the row's count, sentinels and tiles with no live source
+    dropped) as (tile, live sources). ``items`` (n, 6): (row, t0, tlen,
+    e0, e1, dst), one warp each: target slots [t0, t0 + tlen) of the row
+    (tlen <= ``_SPAN``, live slots only) against entries [e0, e1), in order
+    of decreasing work; dst = -1 writes the output, else the item writes
+    partial block dst. ``segtab`` (R, nspan, 2): per (row, span of
+    ``_SPAN`` slots), (first partial block, number of items): 1 item wrote
+    the output itself, 0 items means zeros, k >= 2 items wrote partial
+    blocks first .. first + k - 1, which the second pass adds in that order.
+    """
+
+    items: torch.Tensor
+    entries: torch.Tensor
+    segtab: torch.Tensor
+    nparts: int
+
+
+def work_items(nbr, cnt=None, tcnt=None, scnt=None, *, t, s, l1) -> WorkItems:
+    """Build the work list of a near-field call with torch ops on ``nbr``'s
+    device: ``nbr`` (U, R) with sentinel ``l1 - 1``, optional counts as in
+    :func:`near_field`, ``t`` target slots per row and ``s`` source slots
+    per tile. Each row's live entries are cut greedily, in list order, into
+    runs of at most ``_ITEM_SOURCES`` live sources (an entry with more is a
+    run alone); each run meets each span of the row's live targets in one
+    item. Integer ops and a stable sort only: every device builds the same
+    list."""
+    dev = nbr.device
+    nbr = nbr.long().T  # (R, U)
+    r, u = nbr.shape
+    if scnt is None:
+        size = torch.full_like(nbr, s)
+    else:
+        size = scnt.long().clamp(0, s)[nbr]
+    live = (nbr != l1 - 1) & (size > 0)
+    if cnt is not None:
+        live &= torch.arange(u, device=dev)[None, :] < cnt.long()[:, None]
+    rr, uu = live.nonzero(as_tuple=True)  # row-major: each row's list in order
+    esize = size[rr, uu]
+    entries = torch.stack([nbr[rr, uu], esize], 1)
+
+    # The greedy cut without a loop over the list: a run starting at entry i
+    # ends before nxt[i], so the run starts are the orbit of each row's first
+    # entry under nxt. Binary lifting finds, for every entry, the last orbit
+    # point at or before it (nxt^(2^k) for k < bits covers any row).
+    n = esize.numel()
+    idx = torch.arange(n, device=dev)
+    cum = esize.cumsum(0)  # strictly increasing: live entries hold sources
+    rlen = torch.bincount(rr, minlength=r)
+    rend = rlen.cumsum(0)
+    nxt = torch.searchsorted(cum, cum - esize + _ITEM_SOURCES, right=True)
+    nxt = torch.minimum(torch.maximum(nxt, idx + 1), rend[rr])
+    jumps = [torch.cat([nxt, idx.new_tensor([n])])]
+    for _ in range(max(u, 1).bit_length() - 1):
+        jumps.append(jumps[-1][jumps[-1]])
+    pos = (rend - rlen)[rr]
+    for jump in reversed(jumps):
+        step = jump[pos]
+        pos = torch.where(step <= idx, step, pos)
+    e0 = (pos == idx).nonzero().flatten()
+    e1 = torch.cat([e0[1:], idx.new_tensor([n])])[:e0.numel()]
+    grow = rr[e0]
+    runs = torch.bincount(grow, minlength=r)  # items of each segment of the row
+    grun = torch.arange(e0.numel(), device=dev) - (runs.cumsum(0) - runs)[grow]
+    gsrc = cum[e1 - 1] - (cum - esize)[e0]
+
+    tl = torch.full((r,), t, device=dev) if tcnt is None else tcnt.long().clamp(0, t)
+    nspan = -(-t // _SPAN)
+    spans = torch.where(runs > 0, -(-tl // _SPAN), 0)
+    reps = spans[grow]
+    g = torch.repeat_interleave(torch.arange(grow.numel(), device=dev), reps)
+    span = torch.arange(g.numel(), device=dev)
+    span -= torch.repeat_interleave(reps.cumsum(0) - reps, reps)
+    row = grow[g]
+    t0 = span * _SPAN
+    tlen = (tl[row] - t0).clamp(max=_SPAN)
+    k = runs[row]
+    segk = torch.zeros(r * nspan, dtype=torch.long, device=dev)
+    segk[row * nspan + span] = k
+    split = torch.where(segk >= 2, segk, 0)
+    first = split.cumsum(0) - split
+    dst = torch.where(k >= 2, first[row * nspan + span] + grun[g], -1)
+    items = torch.stack([row, t0, tlen, e0[g], e1[g], dst], 1)
+    order = torch.sort(gsrc[g] * tlen, descending=True, stable=True).indices
+    return WorkItems(items[order].int().contiguous(), entries.int().contiguous(),
+                     torch.stack([first, segk], 1).view(r, nspan, 2).int(), int(split.sum()))
+
+
+def _work_items_on(nbr, cnt, tcnt, scnt, t, s, l1) -> WorkItems:
+    """:func:`work_items`, kept on ``nbr`` itself for the next call with the
+    same count tensors (the tables of a binned target set are built once
+    and never changed in place)."""
+    counts, dims = (cnt, tcnt, scnt), (t, s, l1, _ITEM_SOURCES)
+    kept = getattr(nbr, "_work_items", None)
+    if kept is not None and kept[1] == dims and all(a is b for a, b in zip(kept[0], counts)):
+        return kept[2]
+    with traced_stage("nf_work_items"):
+        wl = work_items(nbr, cnt, tcnt, scnt, t=t, s=s, l1=l1)
+    nbr._work_items = (counts, dims, wl)
+    return wl
 
 
 def _check_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult):
@@ -195,13 +326,21 @@ def _route(tgt, name):
     return False
 
 
-def near_field(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams):
+def near_field(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams, tcnt=None, scnt=None):
     """The near field; see the module docstring. Returns (R, T, nrhs)."""
-    _check(tgt, src, w, nbr, cnt)
+    _check(tgt, src, w, nbr, cnt, tcnt, scnt)
     if _route(tgt, "near_field"):
-        return near_field_plain(tgt, src, w, nbr, cnt, kparams=kparams)
+        return near_field_plain(tgt, src, w, nbr, cnt, kparams=kparams, tcnt=tcnt, scnt=scnt)
     l1, ds, s = src.shape
-    return _launch(tgt, (src, w, nbr, cnt), (ds, s, l1, nbr.shape[0]), w.shape[1], kparams)
+    r, t, _ = tgt.shape
+    nrhs = w.shape[1]
+    wl = _work_items_on(nbr, cnt, tcnt, scnt, t, s, l1)
+    out = torch.empty((r, t, nrhs), dtype=tgt.dtype, device=tgt.device)
+    part = torch.empty((wl.nparts, _SPAN, nrhs), dtype=tgt.dtype, device=tgt.device)
+    name = "near_field_f32" if tgt.dtype == torch.float32 else "near_field_f64"
+    _launch(name, tgt, (src, w, wl.items, wl.entries, wl.segtab, tcnt), (out, part),
+            (ds, s, wl.items.shape[0], wl.segtab.shape[1], nrhs), kparams)
+    return out
 
 
 def near_field_grad(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams):
@@ -213,8 +352,10 @@ def near_field_grad(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams):
     if _route(tgt, "near_field_grad"):
         return near_field_grad_plain(tgt, src, w, nbr, cnt, kparams=kparams)
     l1, ds, s = src.shape
-    return _launch(tgt, (src, w, nbr, cnt), (ds, s, l1, nbr.shape[0]), w.shape[1], kparams,
-                   grad=True)
+    outs = _grad_outs(tgt, w.shape[1])
+    _launch("near_field_grad_f64", tgt, (src, w, nbr, cnt), outs,
+            (ds, s, l1, nbr.shape[0], w.shape[1]), kparams, grad=True)
+    return outs
 
 
 def near_field_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
@@ -225,9 +366,12 @@ def near_field_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
     if _route(tgt, "near_field_cells"):
         return near_field_cells_plain(tgt, cells, cnt, centers, lengths, nodes_nd, mult,
                                       kparams=kparams)
-    return _launch(tgt, (cells, cnt, centers, lengths, nodes_nd, mult),
-                   (nodes_nd.shape[0], centers.shape[0], cells.shape[0]), mult.shape[2],
-                   kparams, cells=True)
+    r, t, _ = tgt.shape
+    out = torch.empty((r, t, mult.shape[2]), dtype=tgt.dtype, device=tgt.device)
+    name = "near_field_cells_f32" if tgt.dtype == torch.float32 else "near_field_cells_f64"
+    _launch(name, tgt, (cells, cnt, centers, lengths, nodes_nd, mult), (out,),
+            (nodes_nd.shape[0], centers.shape[0], cells.shape[0], mult.shape[2]), kparams)
+    return out
 
 
 def near_field_cells_grad(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
@@ -240,41 +384,40 @@ def near_field_cells_grad(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
     if _route(tgt, "near_field_cells_grad"):
         return near_field_cells_grad_plain(tgt, cells, cnt, centers, lengths, nodes_nd, mult,
                                            kparams=kparams)
-    return _launch(tgt, (cells, cnt, centers, lengths, nodes_nd, mult),
-                   (nodes_nd.shape[0], centers.shape[0], cells.shape[0]), mult.shape[2],
-                   kparams, grad=True, cells=True)
+    outs = _grad_outs(tgt, mult.shape[2])
+    _launch("near_field_cells_grad_f64", tgt, (cells, cnt, centers, lengths, nodes_nd, mult),
+            outs, (nodes_nd.shape[0], centers.shape[0], cells.shape[0], mult.shape[2]),
+            kparams, grad=True)
+    return outs
 
 
-def _launch(tgt, operands, sizes, nrhs, kparams, grad=False, cells=False):
-    """Launch one kernel: ``operands`` are the input tensors after ``tgt``
-    (None for absent counts) and ``sizes`` the ints between (R, Tn, d) and
-    nrhs in the symbol's signature (``_SIGNATURES``)."""
+def _grad_outs(tgt, nrhs):
+    r, t, d = tgt.shape
+    return (torch.empty((r, t, nrhs), dtype=tgt.dtype, device=tgt.device),
+            torch.empty((r, t, nrhs, d), dtype=tgt.dtype, device=tgt.device))
+
+
+def _launch(name, tgt, inputs, outs, sizes, kparams, grad=False):
+    """Launch kernel ``name``: ``inputs`` are the input tensors after
+    ``tgt`` (None for absent counts), ``outs`` the outputs the caller
+    allocated and ``sizes`` the ints between (R, Tn, d) and the kernel code
+    in the symbol's signature (``_SIGNATURES``)."""
     lib = build()
-    prefix = "near_field_cells" if cells else "near_field"
-    if grad:
-        name = f"{prefix}_grad_f64"
-    else:
-        name = f"{prefix}_f32" if tgt.dtype == torch.float32 else f"{prefix}_f64"
     r, t, d = tgt.shape
     code, c = kernel_code(kparams)
-    out = torch.empty((r, t, nrhs), dtype=tgt.dtype, device=tgt.device)
-    outs = (out,)
     consts = (c["s2"], c["ip2"], c["near_slope"], c["far_coef"], c["total_sill"])
     if grad:
-        outs += (torch.empty((r, t, nrhs, d), dtype=tgt.dtype, device=tgt.device),)
         consts += (c["far_grad"],)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = getattr(lib, name)(
-            tgt.data_ptr(), *(None if x is None else x.data_ptr() for x in operands),
-            *(o.data_ptr() for o in outs), r, t, d, *sizes, nrhs, code, *consts, c["pw"],
-            stream,
+            tgt.data_ptr(), *(None if x is None else x.data_ptr() for x in inputs),
+            *(o.data_ptr() for o in outs), r, t, d, *sizes, code, *consts, c["pw"], stream,
         )
     if rc != 0:
         msg = lib.near_field_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     LAUNCHES[name] += 1
-    return outs if grad else out
 
 
 def _plain_chunks(tgt, n_src, gather):
@@ -365,10 +508,19 @@ def _plain_grads(tgt, n_src, gather, nrhs, kparams):
     return out, grad
 
 
-def near_field_plain(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams):
+def near_field_plain(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams, tcnt=None,
+                     scnt=None):
     """Plain PyTorch version of :func:`near_field`: gather each row's
-    neighbour tiles and contract in one einsum per row chunk."""
-    return _plain_values(tgt, *_tile_gather(tgt, src, w, nbr, cnt), w.shape[1], kparams)
+    neighbour tiles and contract in one einsum per row chunk; source slots
+    past ``scnt`` weigh nothing and target slots past ``tcnt`` are 0."""
+    if scnt is not None:
+        slots = torch.arange(w.shape[2], device=w.device)
+        w = torch.where((slots[None, :] < scnt[:, None])[:, None, :], w, 0.0)
+    out = _plain_values(tgt, *_tile_gather(tgt, src, w, nbr, cnt), w.shape[1], kparams)
+    if tcnt is not None:
+        slots = torch.arange(tgt.shape[1], device=tgt.device)
+        out[slots[None, :] >= tcnt[:, None]] = 0.0
+    return out
 
 
 def near_field_grad_plain(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams):

@@ -66,6 +66,69 @@ def test_kernel_matches_plain(cuda, dtype, name):
             assert float(got[0].abs().max()) == 0.0  # the count-0 row
 
 
+def _skewed_operands(rng, cuda, dtype, nrhs):
+    """H1/H2 operands with live counts: T = 200 (two target spans), one row
+    listing 216 tiles and the rest at most 8, tcnt in {0, 1, 9, 128, T},
+    scnt from 0 to S, sentinel entries, weights past scnt zero."""
+    rows, t, s, ntiles, u = 40, 200, 96, 60, 216
+    scnt = rng.integers(0, s + 1, ntiles + 1)
+    scnt[:3] = (0, s, 1)
+    scnt[ntiles] = 0
+    src = rng.random((ntiles + 1, 3, s)) - 0.5
+    w = rng.standard_normal((ntiles + 1, nrhs, s))
+    w *= np.arange(s)[None, None, :] < scnt[:, None, None]
+    nbr = rng.integers(0, ntiles, (u, rows))
+    nbr[u - 1, ::2] = ntiles  # sentinel entries
+    nbr[:, 1] = np.arange(u) % ntiles
+    cnt = rng.integers(0, 9, rows)
+    cnt[:2] = (0, u)
+    tcnt = rng.integers(0, t + 1, rows)
+    tcnt[1:6] = (t, 0, 1, 9, 128)
+    tgt = rng.random((rows, t, 3)) - 0.5
+    tgt[6, :10] = src[nbr[0, 6], :, :10].T  # exact copies of sources
+    dev = lambda a, dt=dtype: torch.as_tensor(a).to(cuda, dt)  # noqa: E731
+    i32 = lambda a: dev(a, torch.int32)  # noqa: E731
+    return (dev(tgt), dev(src), dev(w), i32(nbr), i32(cnt)), i32(tcnt), i32(scnt)
+
+
+@pytest.mark.parametrize("budget", [nf._ITEM_SOURCES, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
+def test_kernel_with_live_counts_matches_plain(cuda, monkeypatch, name, dtype, budget):
+    """H1/H2 with tcnt/scnt on a skewed list and sparse rows, nrhs {1, 2,
+    8}: the plain version's values, 0 on dead slots and the count-0 row,
+    and two launches bitwise equal (at 64 live sources per item most rows
+    are cut into several items, added by the second pass)."""
+    monkeypatch.setattr(nf, "_ITEM_SOURCES", budget)
+    kp = _params(name)
+    for nrhs in (1, 2, 8):
+        args, tcnt, scnt = _skewed_operands(np.random.default_rng(11), cuda, dtype, nrhs)
+        got = nf.near_field(*args, kparams=kp, tcnt=tcnt, scnt=scnt)
+        again = nf.near_field(*args, kparams=kp, tcnt=tcnt, scnt=scnt)
+        want = nf.near_field_plain(*args, kparams=kp, tcnt=tcnt, scnt=scnt)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, again)
+        assert _rel(got, want) < TOL[dtype]
+        dead = torch.arange(got.shape[1], device=cuda)[None, :] >= tcnt[:, None]
+        assert float(got[dead].abs().max()) == 0.0
+        assert float(got[0].abs().max()) == 0.0  # cnt 0
+
+
+@pytest.mark.parametrize("budget", [nf._ITEM_SOURCES, 64])
+def test_work_list_on_the_card_is_the_cpus(cuda, monkeypatch, budget):
+    """The work list that ``near_field`` builds on the card equals the one
+    the CPU builds from the same tables, bitwise."""
+    monkeypatch.setattr(nf, "_ITEM_SOURCES", budget)
+    (tgt, src, _, nbr, cnt), tcnt, scnt = _skewed_operands(
+        np.random.default_rng(12), cuda, torch.float64, 1)
+    dims = {"t": tgt.shape[1], "s": src.shape[2], "l1": src.shape[0]}
+    on_card = nf.work_items(nbr, cnt, tcnt, scnt, **dims)
+    on_cpu = nf.work_items(*(x.cpu() for x in (nbr, cnt, tcnt, scnt)), **dims)
+    assert on_card.items.is_cuda and on_card.nparts == on_cpu.nparts
+    for a, b in zip(on_card[:3], on_cpu[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
 def _grad_operands(rng, cuda):
     rows, t, s, ntiles, u, nrhs = 40, 100, 150, 30, 9, 3
     src = np.zeros((ntiles + 1, 3, s))
