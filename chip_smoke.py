@@ -6,18 +6,18 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); build the CUDA near-field
-   kernels from ``ferreus_rbf_tpu_torch/csrc`` with nvcc, print the build
-   seconds and ptxas' registers and spills per kernel (H1/H2 per dtype and
-   rhs block over the ten kernel types);
+   kernels from ``ferreus_rbf_tpu_torch/csrc/near_field.cu`` with nvcc,
+   print the build seconds and ptxas' registers and spills per kernel (per
+   kernel, dtype and rhs block over the ten kernel types);
 2. kernel vs plain PyTorch version for all ten kernel types, f32 (H1) and
    f64 (H2), and the f64 gradient kernel (H3), with and without per-row
    counts, with sentinel entries, a row of count 0 and (H3) targets that
-   are exact copies of sources; H1/H2 again with live counts on a skewed
-   list (one row of 216 tiles, the rest at most 8), rows of 0, 1, 9 or 128
-   live targets and tiles of 0 to S live sources, nrhs {1, 2, 8}, two
-   launches bitwise equal and dead slots 0; then the cell-node kernels H4
-   (f32, f64, gradients) the same way, with sentinel cells and targets
-   that coincide with cell nodes;
+   are exact copies of sources; H1/H2 and H3 again with live counts on a
+   skewed list (one row of 216 tiles, the rest at most 8), rows of 0, 1, 9
+   or 128 live targets and tiles of 0 to S live sources, nrhs {1, 2, 8},
+   two launches bitwise equal and dead slots 0; then the cell-node kernels
+   H4 (f32, f64, gradients) the same way, with live target counts,
+   sentinel cells and targets that coincide with cell nodes;
 3. config-2 matvec: 100k uniform 3-D points, LinearRbf, p = 5, 8 RHS,
    uniform tree, at f32 and f64, against a dense f64 oracle on 1,024
    targets; median of 5 timed matvecs;
@@ -28,14 +28,18 @@ Phases (any failure raises and the script exits non-zero):
    against the values and against a dense f64 gradient on 1,024 grid
    points, with its peak device memory; the fit's near-field calls per leg
    (P2P, M2P, P2L) and precision; H1/H2/H3 timed on the fit's P2P, M2P and
-   P2L legs (H3: P2P, M2P) with their live pair rates and live shares;
+   P2L legs (H3: P2P, M2P) with their live counts, live pair rates and
+   live shares; H3's launches in the 64^3 gradients and an estimate of
+   their device time (each table's last operands re-timed, times its
+   calls) against the evaluation's wall-clock;
 5. config-2 gradients (the JAX bench's gradient cell): 100k uniform points,
    Spheroidal5, p = 5, 2 RHS, adaptive sparse tree, ``evaluate_with_gradients``
    at the sources against value-only ``evaluate`` and a dense f64 oracle;
+   H3 timed there as in phase 4;
 6. the isosurface path: ``build_isosurface`` of the phase-4 fit at span/100
    (the reference example's settings), checked for a non-empty mesh with
    finite vertices inside the padded extents and no edge on more than two
-   facets;
+   facets; the work lists built (``nf_work_items``);
 7. config 4, the north-star fit: 1,000,000 signed-distance samples in a
    shell around a bumpy sphere (``bench.py``'s ``_synthetic_sd``, seed 11),
    LinearRbf, default Params, through ``RBFInterpolator``: fit seconds and
@@ -50,7 +54,9 @@ Phases (any failure raises and the script exits non-zero):
    gate at its default and one with ``FERREUS_RBF_TPU_NODETILE_BYTES=0``
    (gated, M2P on H4): f32 and f64 matvecs and gradients at 4,096 sources
    compared between the two, H4 held against its plain version on the
-   gated tree's whole M2P and timed against the ungated M2P leg (H1/H2/H3).
+   gated tree's whole M2P with live target counts and timed against the
+   ungated M2P leg (H1/H2/H3), which it must equal bit for bit on one set
+   of expansions, with the share of its 256 longest rows.
 
 Phases 4-8 each zero the kernels' launch counters just before they drive
 the port and read them just after. The line before the last is a JSON
@@ -143,12 +149,12 @@ def rel_err(got, want):
 
 def kernel_vs_plain(nf, kparams, tgt, src, w, nbr, cnt, grad=False, counts=None):
     """(relative error, max |diff|) of the kernel against its plain
-    version; for H3 the worse of values and gradients. ``counts`` holds
-    H1/H2's live counts (tcnt, scnt)."""
+    version; for H3 the worse of values and gradients. ``counts`` holds the
+    live counts (tcnt, scnt)."""
     counts = counts or {}
     if grad:
-        got = nf.near_field_grad(tgt, src, w, nbr, cnt, kparams=kparams)
-        want = nf.near_field_grad_plain(tgt, src, w, nbr, cnt, kparams=kparams)
+        got = nf.near_field_grad(tgt, src, w, nbr, cnt, kparams=kparams, **counts)
+        want = nf.near_field_grad_plain(tgt, src, w, nbr, cnt, kparams=kparams, **counts)
     else:
         got = (nf.near_field(tgt, src, w, nbr, cnt, kparams=kparams, **counts),)
         want = (nf.near_field_plain(tgt, src, w, nbr, cnt, kparams=kparams, **counts),)
@@ -304,17 +310,45 @@ def phase_kernels(nf, kt_mod, dev):
         f"coincident targets: worst relative error {worst:.3e} (values and gradients; "
         f"bound 1e-12)")
 
+    # H3 with live counts on the skewed list: sources past scnt carry random
+    # weights, which must weigh nothing
+    worst = 0.0
+    counts = {"tcnt": tcnt.to(dev), "scnt": scnt.to(dev)}
+    dead = torch.arange(t, device=dev)[None, :] >= counts["tcnt"][:, None]
+    for nrhs in (1, 2, 8):
+        w = torch.randn((ntiles + 1, nrhs, s), generator=g, dtype=torch.float64)
+        ops = [x.to(dev) for x in (tgt64, src, w, nbr, cnt)]
+        for kt in kt_mod.KernelType:
+            kw = {"base_range": 1.0, "total_sill": 0.7} if "Spheroidal" in kt.value else {}
+            kp = kt_mod.KernelParams(kt, **kw)
+            err, _ = kernel_vs_plain(nf, kp, *ops, grad=True, counts=counts)
+            if not err <= TOL[torch.float64]:
+                raise AssertionError(f"H3 live counts vs plain {(kt.value, nrhs)}: {err:.3e}")
+            worst = max(worst, err)
+            outs = nf.near_field_grad(*ops, kparams=kp, **counts)
+            again = nf.near_field_grad(*ops, kparams=kp, **counts)
+            if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                raise AssertionError(f"H3 live counts {(kt.value, nrhs)}: two launches differ")
+            if any(float(o[dead].abs().max()) != 0.0 or float(o[0].abs().max()) != 0.0
+                   for o in outs):
+                raise AssertionError(f"H3 live counts {(kt.value, nrhs)}: a dead slot is not 0")
+    log(f"phase 2: H3 with live counts (the 216-tile row, tcnt in {{0,1,9,128}}, scnt "
+        f"0..{s}, weights past scnt random), 10 kernel types x nrhs {{1,2,8}}, coincident "
+        f"targets: worst relative error {worst:.3e} (bound 1e-12); two launches bitwise "
+        f"equal, dead slots 0")
 
-def cells_vs_plain(nf, kparams, ops, grad=False):
+
+def cells_vs_plain(nf, kparams, ops, grad=False, tcnt=None):
     """(relative error, max |diff|) of H4 against its plain version on the
-    operands (tgt, cells, cnt, centers, lengths, nodes, mult); for the
-    gradient form the worse of values and gradients."""
+    operands (tgt, cells, cnt, centers, lengths, nodes, mult) with live
+    target counts ``tcnt``; for the gradient form the worse of values and
+    gradients."""
     if grad:
-        got = nf.near_field_cells_grad(*ops, kparams=kparams)
-        want = nf.near_field_cells_grad_plain(*ops, kparams=kparams)
+        got = nf.near_field_cells_grad(*ops, kparams=kparams, tcnt=tcnt)
+        want = nf.near_field_cells_grad_plain(*ops, kparams=kparams, tcnt=tcnt)
     else:
-        got = (nf.near_field_cells(*ops, kparams=kparams),)
-        want = (nf.near_field_cells_plain(*ops, kparams=kparams),)
+        got = (nf.near_field_cells(*ops, kparams=kparams, tcnt=tcnt),)
+        want = (nf.near_field_cells_plain(*ops, kparams=kparams, tcnt=tcnt),)
     torch.cuda.synchronize()
     if not all(torch.isfinite(x).all() for x in want + got):
         raise AssertionError("H4 or its plain version is not finite")
@@ -324,9 +358,10 @@ def cells_vs_plain(nf, kparams, ops, grad=False):
 
 def phase_kernels_cells(nf, kt_mod, dev):
     """H4: all kernel types x {f32, f64, gradients} x {counts, none} x nrhs
-    {1, 2, 8} on p = 7 cells (343 nodes: three staging blocks, the last
-    partial), with sentinel cells, a row of count 0 and targets that
-    coincide with nodes of a listed cell."""
+    {1, 2, 8} on p = 7 cells (343 nodes: 11 staging chunks, the last
+    partial), with sentinel cells, a row of count 0, rows of 0, 1, 9, 100
+    or 128 live targets and targets that coincide with nodes of a listed
+    cell; two launches bitwise equal and dead slots 0."""
     from ferreus_rbf_tpu_torch.ops.fmm import cheb
 
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -339,6 +374,11 @@ def phase_kernels_cells(nf, kt_mod, dev):
     cells[12:, ::3] = ncells  # sentinel cells
     cnt = torch.randint(0, u + 1, (rows,), generator=g, dtype=torch.int32)
     cnt[0] = 0
+    cnt[1] = u
+    cells[:, 1] = torch.randperm(ncells, generator=g)[:u].int()  # no sentinel
+    choice = torch.tensor([0, 1, 9, 100, 128], dtype=torch.int32)
+    tcnt = choice[torch.randint(0, 5, (rows,), generator=g)].to(dev)
+    dead = torch.arange(t, device=dev)[None, :] >= tcnt[:, None]
     tgt = torch.rand((rows, t, 3), generator=g, dtype=f64) - 0.5
     for r in range(1, rows, 7):  # exact copies of a listed cell's nodes
         c = int(cells[0, r])
@@ -365,10 +405,27 @@ def phase_kernels_cells(nf, kt_mod, dev):
                         for out in (outs if grad else (outs,)):
                             if float(out[0].abs().max()) != 0.0:
                                 raise AssertionError("H4: a row with count 0 must be zero")
+                        # live target counts: the plain version's values,
+                        # two launches bitwise equal, dead slots 0
+                        err, _ = cells_vs_plain(nf, kp, ops, grad, tcnt=tcnt)
+                        if not err <= TOL[dtype]:
+                            raise AssertionError(
+                                f"H4 with tcnt vs plain {(kt.value, key, nrhs)}: {err:.3e}")
+                        worst[key] = max(worst[key], err)
+                        outs = fn(*ops, kparams=kp, tcnt=tcnt)
+                        again = fn(*ops, kparams=kp, tcnt=tcnt)
+                        outs, again = (outs, again) if grad else ((outs,), (again,))
+                        if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                            raise AssertionError(f"H4 {(kt.value, key, nrhs)}: two launches "
+                                                 f"differ")
+                        if any(float(o[dead].abs().max()) != 0.0 for o in outs):
+                            raise AssertionError(f"H4 {(kt.value, key, nrhs)}: a dead slot is "
+                                                 f"not 0")
     for key, err in worst.items():
         log(f"phase 2: H4 near_field_cells {key}, 10 kernel types x counts x nrhs {{1,2,8}}, "
-            f"p = 7 cells, coincident targets: worst relative error {err:.3e} "
-            f"(bound {TOL[torch.float32 if key == 'float32' else f64]:.0e})")
+            f"with and without live target counts, p = 7 cells, coincident targets: worst "
+            f"relative error {err:.3e} (bound {TOL[torch.float32 if key == 'float32' else f64]:.0e}); "
+            f"two launches bitwise equal, dead slots 0")
 
 
 def tree_legs(tree, key, dtype, nrhs, g, with_p2l=True):
@@ -429,8 +486,8 @@ def timed(fn):
 
 def time_leg(nf, kparams, dtype, ops, counts, grad=False, f32_scale=False, plain_reps=3):
     """Kernel and plain-version times (ms), errors, bound and pair rates of
-    one leg; the bound counts the live pairs of ``counts``, which H1/H2 also
-    take (H3 takes none). H1/H2 must give two bitwise-equal launches.
+    one leg; the bound counts the live pairs of ``counts``, which the
+    kernels also take. Two launches must be bitwise equal.
     ``f32_scale`` holds the error against the largest sum of |terms| (the
     plain version on |w|; phi keeps one sign for LinearRbf), the scale of
     rounding in a long f32 sum, instead of max |out|. ``plain_reps`` 0
@@ -439,8 +496,7 @@ def time_leg(nf, kparams, dtype, ops, counts, grad=False, f32_scale=False, plain
     tlive, slive = live_slots(ops, counts)
     kernel = nf.near_field_grad if grad else nf.near_field
     plain = nf.near_field_grad_plain if grad else nf.near_field_plain
-    kw = {} if grad else counts
-    call = lambda fn, wt=w: fn(tgt, src, wt, nbr, cnt, kparams=kparams, **kw)  # noqa: E731
+    call = lambda fn, wt=w: fn(tgt, src, wt, nbr, cnt, kparams=kparams, **counts)  # noqa: E731
     want, plain_ms = timed(lambda: call(plain))
     got = call(kernel)
     got, want = (got, want) if grad else ((got,), (want,))
@@ -453,7 +509,8 @@ def time_leg(nf, kparams, dtype, ops, counts, grad=False, f32_scale=False, plain
         held = absd / float(call(plain, w.abs()).abs().max())
     if not held <= TOL[dtype]:
         raise AssertionError(f"kernel vs plain: {held:.3e} > {TOL[dtype]}")
-    if not grad and not torch.equal(got[0], call(kernel)):
+    again = call(kernel)
+    if not all(torch.equal(a, b) for a, b in zip(got, again if grad else (again,))):
         raise AssertionError("two launches on the same operands differ")
     ms = cuda_ms(lambda: call(kernel))
     if plain_reps:
@@ -463,7 +520,7 @@ def time_leg(nf, kparams, dtype, ops, counts, grad=False, f32_scale=False, plain
     listed = nbr.T.long() != src.shape[0] - 1
     if cnt is not None:
         listed &= torch.arange(nbr.shape[0], device=nbr.device)[None, :] < cnt[:, None]
-    # (target slot, source slot) pairs a one-block-per-row loop runs, pads
+    # (target slot, source slot) pairs a one-block-per-row loop ran, pads
     # included, against the live pairs the bound counts
     slot_pairs = int(listed.sum()) * tgt.shape[1] * src.shape[2]
     live_src = (slive[nbr.T.long()] * listed).sum(1).double()
@@ -497,12 +554,13 @@ def log_near_field(prefix, name, r):
 class LegCounter:
     """While installed, wraps ``api.near_field`` (H1/H2, which ``FmmTree``
     calls once per leg: P2L without tcnt, M2P with a count table, P2P
-    without one) to count its calls per (leg, dtype) and per neighbour
-    table, and keep each table's last operands; ``LAUNCHES`` still counts
-    the launches themselves."""
+    without one), or ``api.near_field_grad`` (H3: P2P and M2P) when ``name``
+    says so, to count its calls per (leg, dtype) and per neighbour table,
+    and keep each table's last operands; ``LAUNCHES`` still counts the
+    launches themselves."""
 
-    def __init__(self, api):
-        self.api, self.real = api, api.near_field
+    def __init__(self, api, name="near_field"):
+        self.api, self.name, self.real = api, name, getattr(api, name)
         self.calls, self.last = {}, {}
 
     def __enter__(self):
@@ -515,11 +573,29 @@ class LegCounter:
             self.last[(key, id(nbr))] = ((tgt, src, w, nbr, cnt), counts, calls + 1)
             return self.real(tgt, src, w, nbr, cnt, **kw)
 
-        self.api.near_field = counted
+        setattr(self.api, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        self.api.near_field = self.real
+        setattr(self.api, self.name, self.real)
+
+
+def h3_launch_time(nf, kparams, legs, wall_s, prefix):
+    """H3's launches in a gradient evaluation (a :class:`LegCounter` on
+    ``near_field_grad``) and an estimate of their device time: each table's
+    last operands relaunched (CUDA events, mean of 3) times the table's
+    calls, per leg, against the evaluation's wall-clock."""
+    per_leg = {}
+    for (key, _), (ops, counts, calls) in legs.last.items():
+        ms = cuda_ms(lambda: nf.near_field_grad(*ops, kparams=kparams, **counts), reps=3)
+        n, total = per_leg.get(key, (0, 0.0))
+        per_leg[key] = (n + calls, total + calls * ms)
+    total_ms = sum(v[1] for v in per_leg.values())
+    legs_txt = ", ".join(f"{k.split('_')[0]} {n} launches, {ms:.3f} ms"
+                         for k, (n, ms) in sorted(per_leg.items()))
+    log(f"{prefix}: H3 estimate, calls x re-timed ms on each table's last operands "
+        f"({legs_txt}): {total_ms:.3f} ms, {total_ms / (wall_s * 1e3):.2%} of the "
+        f"{wall_s:.3f} s wall-clock")
 
 
 
@@ -655,8 +731,9 @@ def phase_albatite(frt, nf, timing, dev):
     before = dict(nf.LAUNCHES)
     grad_tracer = timing.enable_global_tracer()
     t0 = time.perf_counter()
-    gv, gg = rbfi.evaluate_with_gradients(grid)
-    torch.cuda.synchronize()
+    with LegCounter(api, "near_field_grad") as grad_legs:
+        gv, gg = rbfi.evaluate_with_gradients(grid)
+        torch.cuda.synchronize()
     grad_s = time.perf_counter() - t0
     timing.disable_global_tracer()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -700,6 +777,9 @@ def phase_albatite(frt, nf, timing, dev):
         raise AssertionError(f"albatite gradients: values {val_err:.3e}, grads {grad_err:.3e}")
     if not all(launches[name] > 0 for name in REPLACES if not name.startswith("near_field_cells")):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    h3_launch_time(nf, settings.kernel_params(), grad_legs, grad_s,
+                   "phase 4: 64^3 evaluate_with_gradients")
+    del grad_legs
 
     # kernel vs plain at the fit's own shapes (nrhs 1): its "__all__" tree;
     # the sources are also the seed projection's first gradient targets
@@ -724,6 +804,7 @@ def phase_config2_gradients(nf, dev):
     """The JAX bench's gradient cell: 100k uniform points, Spheroidal5,
     p = 5, 2 RHS, adaptive sparse tree, gradients at the sources."""
     from ferreus_rbf_tpu_torch.ops.dense import dense_matvec
+    from ferreus_rbf_tpu_torch.ops.fmm import api
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
     from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType, make_kernel
 
@@ -742,6 +823,8 @@ def phase_config2_gradients(nf, dev):
         f"w-list tiles {tree._m2p_nw})")
     vg = tree.evaluate_with_gradients(w, pts, reuse_key="src")  # warm
     grad_s = synced_median(lambda: tree.evaluate_with_gradients(w, pts, reuse_key="src"))
+    with LegCounter(api, "near_field_grad") as grad_legs:
+        tree.evaluate_with_gradients(w, pts, reuse_key="src")
     tree.evaluate(w, pts, reuse_key="src")  # warm
     val_s = synced_median(lambda: tree.evaluate(w, pts, reuse_key="src"))
     launches = dict(nf.LAUNCHES)
@@ -769,6 +852,8 @@ def phase_config2_gradients(nf, dev):
         raise AssertionError(f"config-2 gradients: values {v_err:.3e}, grads {g_err:.3e}")
     if not launches["near_field_grad_f64"] > 0:
         raise AssertionError(f"H3 never launched in phase 5: {launches}")
+    h3_launch_time(nf, kp, grad_legs, grad_s, "phase 5: config-2 evaluate_with_gradients "
+                   "(median)")
     g = torch.Generator(device="cpu").manual_seed(3)
     r = time_near_field(nf, tree, "src", torch.float64, kp, 2, g,
                         grad=True)
@@ -805,12 +890,23 @@ def phase_isosurface(frt, nf, timing, rbfi, pts, span):
     rbfi.evaluate_targets = counted(rbfi.evaluate_targets, "lattice")
     rbfi.evaluate_targets_with_gradients = counted(
         rbfi.evaluate_targets_with_gradients, "gradient")
+    builds = []
+    work_items = nf.work_items
+
+    def counted_lists(*args, **kw):
+        builds.append(1)
+        return work_items(*args, **kw)
+
     torch.cuda.synchronize()
     nf.reset_launches()
+    nf.work_items = counted_lists
     tracer = timing.enable_global_tracer()
     t0 = time.perf_counter()
-    mesh = rbfi.build_isosurface(extents, resolution, 0.0, frt.BoundaryClosure.None_)
-    torch.cuda.synchronize()
+    try:
+        mesh = rbfi.build_isosurface(extents, resolution, 0.0, frt.BoundaryClosure.None_)
+        torch.cuda.synchronize()
+    finally:
+        nf.work_items = work_items
     iso_s = time.perf_counter() - t0
     timing.disable_global_tracer()
     launches = dict(nf.LAUNCHES)
@@ -827,6 +923,8 @@ def phase_isosurface(frt, nf, timing, rbfi, pts, span):
         f"max facets per edge {int(uses.max()) if uses.size else 0}, "
         f"boundary edges {int((uses == 1).sum())}")
     log(f"phase 6: stages (s) {json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
+    log(f"phase 6: nf_work_items {tracer.totals.get('nf_work_items', 0.0):.3f} s over "
+        f"{len(builds)} work lists built")
     log(f"phase 6: launches {json.dumps(launches)}")
     if mesh.num_facets == 0 or not np.isfinite(verts).all() or not inside:
         raise AssertionError("isosurface empty, not finite, or outside the padded extents")
@@ -1026,6 +1124,8 @@ def phase_gate(nf, dev, rbfi):
         f"{shared[1]:.3e} (bound 1e-12); the ungated tree against itself after a second "
         f"upward and downward pass: values {noise[0]:.3e}, gradients {noise[1]:.3e} "
         f"(bound {GRAD_NOISE:.0e})")
+    log(f"phase 8: gated vs ungated f64 matvec bitwise equal: "
+        f"{torch.equal(out['gated'][1], out['ungated'][1])}")
     log(f"phase 8: launches ungated {json.dumps(launches['ungated'])}; "
         f"gated {json.dumps(launches['gated'])}")
     cells = ("near_field_cells_f32", "near_field_cells_f64", "near_field_cells_grad_f64")
@@ -1043,7 +1143,7 @@ def phase_gate(nf, dev, rbfi):
     # the 256 rows with the longest w-lists show how much the tail weighs
     binned, ub = gated._target_cache["src"], ungated._target_cache["src"]
     t = binned[torch.float64]["tpts"].shape[1]
-    tlive = torch.bincount(binned["inv_flat"] // t, minlength=binned["wcnt"].shape[0])
+    tlive = binned["tcnt"]
     slive = torch.full((gated.tree.num_cells + 1,), gated.nnodes, device=dev)
     slive[-1] = 0
     sel = torch.argsort(binned["wcnt"], descending=True)[:256]
@@ -1054,16 +1154,20 @@ def phase_gate(nf, dev, rbfi):
                               ("near_field_cells_f64", torch.float64, False),
                               ("near_field_cells_grad_f64", torch.float64, True)):
         tpts = gated._binned_floats(binned, dtype)["tpts"]
+        # one set of expansions for both trees (the two differ in the last
+        # bits, above), so the legs can be compared bit for bit
         mult = gated._multipole.to(dtype)
         ops = (tpts, binned["wtab"], binned["wcnt"], *gated._cell_geometry(), mult)
         leg = (ungated._binned_floats(ub, dtype)["tpts"], ungated._floats(dtype)["node_tiles"],
-               ungated._m2p_tiles(ungated._multipole.to(dtype)), ub["wtab"], ub["wcnt"])
+               ungated._m2p_tiles(mult), ub["wtab"], ub["wcnt"])
         chunk = (tpts[sel].contiguous(), binned["wtab"][:, sel].contiguous(),
                  binned["wcnt"][sel].contiguous(), *ops[3:])
+        tc = {"tcnt": binned["tcnt"]}
+        chunk_tc = {"tcnt": binned["tcnt"][sel].contiguous()}
         h4 = nf.near_field_cells_grad if grad else nf.near_field_cells
         h123 = nf.near_field_grad if grad else nf.near_field
         plain = nf.near_field_cells_grad_plain if grad else nf.near_field_cells_plain
-        rel, absd = cells_vs_plain(nf, kp, ops, grad)
+        rel, absd = cells_vs_plain(nf, kp, ops, grad, **tc)
         held = rel
         if dtype == torch.float32:
             # a row sums (w-list cells x p^d) f32 terms, tens of thousands
@@ -1071,35 +1175,48 @@ def phase_gate(nf, dev, rbfi):
             # sum of |terms|, not to |sum|: the f32 check is held against
             # that scale (phi = -r keeps one sign here, so the plain version
             # on |mult| gives it up to sign)
-            held = absd / float(plain(*ops[:-1], mult.abs(), kparams=kp).abs().max())
+            held = absd / float(plain(*ops[:-1], mult.abs(), kparams=kp, **tc).abs().max())
         if not held <= TOL[dtype]:
             raise AssertionError(f"{name} vs plain on the gated M2P: {held:.3e}")
-        ms = cuda_ms(lambda: h4(*ops, kparams=kp))
-        counts = {} if grad else {"tcnt": ub["tcnt"]}
-        leg_ms = cuda_ms(lambda: h123(*leg, kparams=kp, **counts))
-        chunk_ms = cuda_ms(lambda: h4(*chunk, kparams=kp))
-        plain_ms = cuda_ms(lambda: plain(*ops, kparams=kp), reps=1)
+        ms = cuda_ms(lambda: h4(*ops, kparams=kp, **tc))
+        leg_ms = cuda_ms(lambda: h123(*leg, kparams=kp, tcnt=ub["tcnt"]))
+        # the same items in the same order with the same arithmetic: H4 on
+        # the cell table gives the ungated leg's sums bit for bit
+        got, other = h4(*ops, kparams=kp, **tc), h123(*leg, kparams=kp, tcnt=ub["tcnt"])
+        bitwise = all(torch.equal(a, b) for a, b in
+                      (zip(got, other) if grad else ((got, other),)))
+        chunk_ms = cuda_ms(lambda: h4(*chunk, kparams=kp, **chunk_tc))
+        plain_ms = cuda_ms(lambda: plain(*ops, kparams=kp, **tc), reps=1)
         bound_ms, bound_by, flops = near_field_bound(kp, ops, tlive, slive, grad,
                                                      nrhs=mult.shape[2])
-        pairs = float((binned["wcnt"].double() * t).sum()) * gated.nnodes
-        log(f"phase 8: {name} gated M2P, rows {tpts.shape[0]}: kernel {ms:.4f} ms "
-            f"({pairs / (ms * 1e-3) / 1e9:.1f} Gpair/s, {flops / (ms * 1e-3) / 1e12:.2f} "
-            f"TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-            f"max |diff| {absd:.3e}: {rel:.3e} of max |out|, {held:.3e} of the scale held "
-            f"(bound {TOL[dtype]:.0e}); ungated M2P leg "
+        pairs = float((binned["wcnt"].double() * tlive.double()).sum()) * gated.nnodes
+        log(f"phase 8: {name} gated M2P with live target counts, rows {tpts.shape[0]}: "
+            f"kernel {ms:.4f} ms ({pairs / (ms * 1e-3) / 1e9:.1f} live Gpair/s, "
+            f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.4f} ms, max |diff| {absd:.3e}: {rel:.3e} of max |out|, "
+            f"{held:.3e} of the scale held (bound {TOL[dtype]:.0e}); ungated M2P leg "
             f"({'H3' if grad else 'H1' if dtype == torch.float32 else 'H2'}) {leg_ms:.4f} ms, "
-            f"gated / ungated {ms / leg_ms:.3f}; the {sel.numel()} longest rows alone: "
-            f"kernel {chunk_ms:.4f} ms")
+            f"gated / ungated {ms / leg_ms:.3f}, bitwise equal to it: {bitwise}; the "
+            f"{sel.numel()} longest rows alone: kernel {chunk_ms:.4f} ms, {chunk_ms / ms:.2%} "
+            f"of the whole")
+        if not bitwise:
+            raise AssertionError(f"{name} on the gated M2P is not bitwise the ungated leg")
         entries[name] = kernel_entry(name, launches["gated"][name],
                                      {"abs": absd, "ms": ms, "plain_ms": plain_ms,
                                       "bound_ms": bound_ms, "bound_by": bound_by})
     return entries
 
 
+# the mangled name of near_field_work_items_kernel<KT, T, NR, GRAD, CELLS>
+_ITEM_KERNEL = r"near_field_work_items_kernelILi(\d+)E([fd])Li(\d+)ELb([01])ELb([01])E"
+_ITEM_LABELS = {("0", "0"): "H1/H2", ("1", "0"): "H3 grad", ("0", "1"): "H4 cells",
+                ("1", "1"): "H4 cells grad"}
+
+
 def log_ptxas(report):
     """nvcc's ``-Xptxas -v`` report: registers and spill bytes per kernel;
-    the 80 H1/H2 instantiations (kernel type x dtype x NR) summed up per
-    (dtype, NR) over the ten kernel types."""
+    the work-item kernels' instantiations (kernel type x dtype x NR) summed
+    up per (kernel, dtype, NR) over the ten kernel types."""
     stats, entry = {}, "?"
     for line in report.splitlines():
         if "entry function" in line:
@@ -1112,16 +1229,16 @@ def log_ptxas(report):
                                                                 line).group(1))
     groups = {}
     for name, st in stats.items():
-        m = re.search(r"near_field_items_kernelILi(\d+)E([fd])Li(\d+)E", name)
+        m = re.search(_ITEM_KERNEL, name)
         if m is None:
             log(f"phase 1: ptxas {name}: {st.get('regs')} registers, "
                 f"{st.get('spill', 0)} bytes of spills")
             continue
-        key = ("f32" if m.group(2) == "f" else "f64", int(m.group(3)))
+        key = (_ITEM_LABELS[(m.group(4), m.group(5))], "f32" if m.group(2) == "f" else "f64", int(m.group(3)))
         groups.setdefault(key, []).append((st.get("regs", 0), st.get("spill", 0)))
-    for (dtype, nr), vals in sorted(groups.items()):
+    for (label, dtype, nr), vals in sorted(groups.items()):
         regs = [v[0] for v in vals]
-        log(f"phase 1: ptxas near_field_items_kernel {dtype} NR={nr}, {len(vals)} kernel "
+        log(f"phase 1: ptxas {label} {dtype} NR={nr}, {len(vals)} kernel "
             f"types: {min(regs)}-{max(regs)} registers, at most {max(v[1] for v in vals)} "
             f"bytes of spills")
 
@@ -1136,6 +1253,7 @@ def main():
     from ferreus_rbf_tpu_torch.utils import timing
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1157,6 +1275,8 @@ def main():
     entries["near_field_grad_f64"]["launches"] = iso_launches["near_field_grad_f64"]
     rbfi4 = phase_config4(frt, nf, timing, dev)
     entries.update(phase_gate(nf, dev, rbfi4))
+    log(f"all eight phases in {time.perf_counter() - t_start:.1f} s (kernel build "
+        f"{nf.BUILD_INFO['seconds']:.2f} s)")
 
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -641,7 +641,8 @@ class FmmTree:
                            scnt=self._dev["src_scnt"])
         if binned["wtab"] is not None and self._m2p_tiles_gated:
             vals += near_field_cells(bs["tpts"], binned["wtab"], binned["wcnt"],
-                                     *self._cell_geometry(), mult, kparams=self.kernel_params)
+                                     *self._cell_geometry(), mult, kparams=self.kernel_params,
+                                     tcnt=binned["tcnt"])
         elif binned["wtab"] is not None:
             vals += near_field(bs["tpts"], fs["node_tiles"], self._m2p_tiles(mult),
                                binned["wtab"], binned["wcnt"], kparams=self.kernel_params,
@@ -663,15 +664,16 @@ class FmmTree:
         vals, grads = self._l2p(binned, fs, self._local, with_grads=True)
         grads = grads.transpose(2, 3).contiguous()  # (rows, T, r, d)
         kp = self.kernel_params
+        tcnt = binned["tcnt"]
         legs = [near_field_grad(tpts, fs["src_tiles"], self._weight_tiles, binned["nbr"],
-                                kparams=kp)]
+                                kparams=kp, tcnt=tcnt, scnt=self._dev["src_scnt"])]
         if binned["wtab"] is not None and self._m2p_tiles_gated:
             legs.append(near_field_cells_grad(tpts, binned["wtab"], binned["wcnt"],
                                               *self._cell_geometry(), self._multipole,
-                                              kparams=kp))
+                                              kparams=kp, tcnt=tcnt))
         elif binned["wtab"] is not None:
             legs.append(near_field_grad(tpts, fs["node_tiles"], self._m2p_tiles(self._multipole),
-                                        binned["wtab"], binned["wcnt"], kparams=kp))
+                                        binned["wtab"], binned["wcnt"], kparams=kp, tcnt=tcnt))
         for v, g in legs:
             vals += v
             grads += g

@@ -32,21 +32,23 @@ cell's sources are its p^d Chebyshev nodes, ``centers[c] + (lengths[c] *
 (bitwise the stored node tiles), weighted by its multipole coefficients
 ``mult[c, j, k]`` (ncells, p^d, nrhs). Nothing is gathered per matvec.
 
-:func:`near_field` also takes live counts: ``tcnt`` (R,) int32, the live
-target slots of each row (the leading ones), and ``scnt`` (L+1,) int32,
-the live source slots of each tile (the leading ones; 0 for the
-sentinel). No pair with a dead target or a dead source slot is computed,
-and dead target slots come out 0. Without them every slot is live.
+Every form takes live counts: ``tcnt`` (R,) int32, the live target slots
+of each row (the leading ones), and, where the sources are tiles, ``scnt``
+(L+1,) int32, the live source slots of each tile (the leading ones; 0 for
+the sentinel; a listed cell has all its nodes live). No pair with a dead
+target or a dead source slot is computed, and dead target slots come out
+0 (values and gradients). Without them every slot is live.
 
-On a CUDA tensor :func:`near_field` launches the hand-written Hopper kernel
-(``csrc/near_field.cu``): ``near_field_f32`` (H1) or ``near_field_f64`` (H2),
-over the call's work items (:func:`work_items`: each a row, a span of its
-live targets and a stretch of its live neighbour tiles of at most
-``_ITEM_SOURCES`` live sources), built once per neighbour table and kept
-on it; :func:`near_field_grad` launches ``near_field_grad_f64`` (H3);
-:func:`near_field_cells` launches ``near_field_cells_f32`` or
+On a CUDA tensor each form launches its hand-written Hopper kernel
+(``csrc/near_field.cu``): :func:`near_field` ``near_field_f32`` (H1) or
+``near_field_f64`` (H2), :func:`near_field_grad` ``near_field_grad_f64``
+(H3), :func:`near_field_cells` ``near_field_cells_f32`` or
 ``near_field_cells_f64`` and :func:`near_field_cells_grad`
-``near_field_cells_grad_f64`` (H4). Each launches its kernel or raises. On a
+``near_field_cells_grad_f64`` (H4). All of them run over the call's work
+items (:func:`work_items`: each a row, a span of its live targets and a
+stretch of its live neighbour tiles or cells of at most ``_ITEM_SOURCES``
+live sources), built once per neighbour table and kept on it. Each
+launches its kernel or raises. On a
 CPU tensor they run the ``*_plain`` versions, the gather + chunked einsum
 forms of the same functions, which the tests hold against the Pallas
 kernels and the chip smoke test holds against the CUDA kernels.
@@ -80,16 +82,16 @@ LAUNCHES = {"near_field_f32": 0, "near_field_f64": 0, "near_field_grad_f64": 0,
             "near_field_cells_grad_f64": 0}
 
 # C signature of each symbol: (input pointers, output pointers, ints,
-# doubles), then the spheroidal power and the stream. H1/H2 take (tgt,
-# src, w, items, entries, segtab, tcnt), (out, part) and (R, Tn, d, ds, S,
-# nitems, nspan, nrhs, code); H3 (tgt, src, w, nbr, cnt) and (R, Tn, d, ds,
-# S, L1, U, nrhs, code); cell kernels (tgt, cells, cnt, centers, lengths,
-# nodes, mult) and (R, Tn, d, P, ncells, U, nrhs, code). Gradient kernels
-# add gout and far_grad.
+# doubles), then the spheroidal power and the stream. Tile kernels take
+# (tgt, src, w, items, entries, segtab, tcnt) and (R, Tn, d, ds, S, nitems,
+# nspan, nrhs, code); cell kernels (tgt, centers, lengths, nodes, mult,
+# items, entries, segtab, tcnt) and (R, Tn, d, P, nitems, nspan, nrhs,
+# code). Outputs: (out, part), or (out, gout, part, gpart) for gradients,
+# which also take far_grad.
 _SIGNATURES = {"near_field_f32": (7, 2, 9, 5), "near_field_f64": (7, 2, 9, 5),
-               "near_field_grad_f64": (5, 2, 9, 6),
-               "near_field_cells_f32": (7, 1, 8, 5), "near_field_cells_f64": (7, 1, 8, 5),
-               "near_field_cells_grad_f64": (7, 2, 8, 6)}
+               "near_field_grad_f64": (7, 4, 9, 6),
+               "near_field_cells_f32": (9, 2, 8, 5), "near_field_cells_f64": (9, 2, 8, 5),
+               "near_field_cells_grad_f64": (9, 4, 8, 6)}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_PKG_DIR, "csrc", "near_field.cu")
@@ -98,10 +100,11 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _PLAIN_BUDGET = 1 << 22
-# Target slots of one H1/H2 work item: the kernel's kSpan (32 lanes x 4).
+# Target slots of one work item: the kernels' kSpan (32 lanes x 4).
 _SPAN = 128
-# Live source slots of one H1/H2 work item (a tile that alone holds more
-# is an item of its own). Set on the H100 from near_field_legs.py (PERF.md).
+# Live source slots of one work item (a tile or cell that alone holds
+# more is an item of its own), for every kernel. Set on the H100 from
+# near_field_legs.py (PERF.md).
 _ITEM_SOURCES = 256
 _LOCK = threading.Lock()
 _LIB = None
@@ -189,6 +192,11 @@ def _check(tgt, src, w, nbr, cnt, tcnt=None, scnt=None):
         raise ValueError(f"need ds >= d, got d={tgt.shape[2]}, ds={ds}")
     if w.shape[0] != l1 or w.shape[2] != s:
         raise ValueError(f"w {tuple(w.shape)} does not match src {tuple(src.shape)}")
+    _check_counts(tgt, tcnt, scnt, l1)
+
+
+def _check_counts(tgt, tcnt, scnt, l1):
+    counts = tuple(x for x in (tcnt, scnt) if x is not None)
     if any(x.dtype != torch.int32 for x in counts):
         raise TypeError("tcnt and scnt must be int32")
     if ((tcnt is not None and tuple(tcnt.shape) != (tgt.shape[0],))
@@ -197,11 +205,11 @@ def _check(tgt, src, w, nbr, cnt, tcnt=None, scnt=None):
 
 
 class WorkItems(NamedTuple):
-    """The work list of one H1/H2 call (int32 tensors).
+    """The work list of one near-field call (int32 tensors).
 
     ``entries`` (E, 2): each row's live neighbour entries in list order
     (entries past the row's count, sentinels and tiles with no live source
-    dropped) as (tile, live sources). ``items`` (n, 6): (row, t0, tlen,
+    dropped) as (tile or cell, live sources). ``items`` (n, 6): (row, t0, tlen,
     e0, e1, dst), one warp each: target slots [t0, t0 + tlen) of the row
     (tlen <= ``_SPAN``, live slots only) against entries [e0, e1), in order
     of decreasing work; dst = -1 writes the output, else the item writes
@@ -219,21 +227,22 @@ class WorkItems(NamedTuple):
 
 def work_items(nbr, cnt=None, tcnt=None, scnt=None, *, t, s, l1) -> WorkItems:
     """Build the work list of a near-field call with torch ops on ``nbr``'s
-    device: ``nbr`` (U, R) with sentinel ``l1 - 1``, optional counts as in
-    :func:`near_field`, ``t`` target slots per row and ``s`` source slots
-    per tile. Each row's live entries are cut greedily, in list order, into
-    runs of at most ``_ITEM_SOURCES`` live sources (an entry with more is a
-    run alone); each run meets each span of the row's live targets in one
-    item. Integer ops and a stable sort only: every device builds the same
-    list."""
+    device: ``nbr`` (U, R) with sentinel ``l1 - 1`` (ids outside [0, l1 - 1)
+    are dropped), optional counts as in :func:`near_field`, ``t`` target
+    slots per row and ``s`` source slots per tile or cell. Each row's live
+    entries are cut greedily, in list order, into runs of at most
+    ``_ITEM_SOURCES`` live sources (an entry with more is a run alone); each
+    run meets each span of the row's live targets in one item. Integer ops
+    and a stable sort only: every device builds the same list."""
     dev = nbr.device
     nbr = nbr.long().T  # (R, U)
     r, u = nbr.shape
+    listed = (nbr >= 0) & (nbr < l1 - 1)
     if scnt is None:
         size = torch.full_like(nbr, s)
     else:
-        size = scnt.long().clamp(0, s)[nbr]
-    live = (nbr != l1 - 1) & (size > 0)
+        size = scnt.long().clamp(0, s)[torch.where(listed, nbr, l1 - 1)]
+    live = listed & (size > 0)
     if cnt is not None:
         live &= torch.arange(u, device=dev)[None, :] < cnt.long()[:, None]
     rr, uu = live.nonzero(as_tuple=True)  # row-major: each row's list in order
@@ -290,7 +299,8 @@ def work_items(nbr, cnt=None, tcnt=None, scnt=None, *, t, s, l1) -> WorkItems:
 def _work_items_on(nbr, cnt, tcnt, scnt, t, s, l1) -> WorkItems:
     """:func:`work_items`, kept on ``nbr`` itself for the next call with the
     same count tensors (the tables of a binned target set are built once
-    and never changed in place)."""
+    and never changed in place): the value and gradient kernels on one
+    table share it."""
     counts, dims = (cnt, tcnt, scnt), (t, s, l1, _ITEM_SOURCES)
     kept = getattr(nbr, "_work_items", None)
     if kept is not None and kept[1] == dims and all(a is b for a, b in zip(kept[0], counts)):
@@ -301,8 +311,10 @@ def _work_items_on(nbr, cnt, tcnt, scnt, t, s, l1) -> WorkItems:
     return wl
 
 
-def _check_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult):
-    _check_common(tgt, cells, cnt, (tgt, centers, lengths, nodes_nd, mult))
+def _check_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult, tcnt=None):
+    counts = () if tcnt is None else (tcnt,)
+    _check_common(tgt, cells, cnt, (tgt, centers, lengths, nodes_nd, mult) + counts)
+    _check_counts(tgt, tcnt, None, None)
     if mult.dtype != tgt.dtype:
         raise TypeError("tgt and mult must share one dtype")
     if not all(x.dtype == torch.float64 for x in (centers, lengths, nodes_nd)):
@@ -343,58 +355,79 @@ def near_field(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams, tcnt=None, 
     return out
 
 
-def near_field_grad(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams):
+def near_field_grad(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams, tcnt=None,
+                    scnt=None):
     """Values and target gradients of the near field; float64 only.
     Returns ((R, T, nrhs), (R, T, nrhs, d))."""
-    _check(tgt, src, w, nbr, cnt)
+    _check(tgt, src, w, nbr, cnt, tcnt, scnt)
     if tgt.dtype != torch.float64:
         raise TypeError(f"near_field_grad takes float64 tensors, got {tgt.dtype}")
     if _route(tgt, "near_field_grad"):
-        return near_field_grad_plain(tgt, src, w, nbr, cnt, kparams=kparams)
+        return near_field_grad_plain(tgt, src, w, nbr, cnt, kparams=kparams, tcnt=tcnt,
+                                     scnt=scnt)
     l1, ds, s = src.shape
-    outs = _grad_outs(tgt, w.shape[1])
-    _launch("near_field_grad_f64", tgt, (src, w, nbr, cnt), outs,
-            (ds, s, l1, nbr.shape[0], w.shape[1]), kparams, grad=True)
-    return outs
+    nrhs = w.shape[1]
+    wl = _work_items_on(nbr, cnt, tcnt, scnt, tgt.shape[1], s, l1)
+    outs = _grad_outs(tgt, nrhs, wl.nparts)
+    _launch("near_field_grad_f64", tgt, (src, w, wl.items, wl.entries, wl.segtab, tcnt), outs,
+            (ds, s, wl.items.shape[0], wl.segtab.shape[1], nrhs), kparams, grad=True)
+    return outs[:2]
 
 
 def near_field_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
-                     kparams: KernelParams):
+                     kparams: KernelParams, tcnt=None):
     """M2P over virtual cell nodes; see the module docstring. Returns
     (R, T, nrhs) in the targets' dtype."""
-    _check_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult)
+    _check_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult, tcnt)
     if _route(tgt, "near_field_cells"):
         return near_field_cells_plain(tgt, cells, cnt, centers, lengths, nodes_nd, mult,
-                                      kparams=kparams)
+                                      kparams=kparams, tcnt=tcnt)
     r, t, _ = tgt.shape
-    out = torch.empty((r, t, mult.shape[2]), dtype=tgt.dtype, device=tgt.device)
+    nrhs = mult.shape[2]
+    wl = _cell_items(tgt, cells, cnt, centers, nodes_nd, tcnt)
+    out = torch.empty((r, t, nrhs), dtype=tgt.dtype, device=tgt.device)
+    part = torch.empty((wl.nparts, _SPAN, nrhs), dtype=tgt.dtype, device=tgt.device)
     name = "near_field_cells_f32" if tgt.dtype == torch.float32 else "near_field_cells_f64"
-    _launch(name, tgt, (cells, cnt, centers, lengths, nodes_nd, mult), (out,),
-            (nodes_nd.shape[0], centers.shape[0], cells.shape[0], mult.shape[2]), kparams)
+    _launch(name, tgt, (centers, lengths, nodes_nd, mult, wl.items, wl.entries, wl.segtab,
+                        tcnt), (out, part),
+            (nodes_nd.shape[0], wl.items.shape[0], wl.segtab.shape[1], nrhs), kparams)
     return out
 
 
 def near_field_cells_grad(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
-                          kparams: KernelParams):
+                          kparams: KernelParams, tcnt=None):
     """Values and target gradients of :func:`near_field_cells`; float64
     only. Returns ((R, T, nrhs), (R, T, nrhs, d))."""
-    _check_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult)
+    _check_cells(tgt, cells, cnt, centers, lengths, nodes_nd, mult, tcnt)
     if tgt.dtype != torch.float64:
         raise TypeError(f"near_field_cells_grad takes float64 tensors, got {tgt.dtype}")
     if _route(tgt, "near_field_cells_grad"):
         return near_field_cells_grad_plain(tgt, cells, cnt, centers, lengths, nodes_nd, mult,
-                                           kparams=kparams)
-    outs = _grad_outs(tgt, mult.shape[2])
-    _launch("near_field_cells_grad_f64", tgt, (cells, cnt, centers, lengths, nodes_nd, mult),
-            outs, (nodes_nd.shape[0], centers.shape[0], cells.shape[0], mult.shape[2]),
-            kparams, grad=True)
-    return outs
+                                           kparams=kparams, tcnt=tcnt)
+    nrhs = mult.shape[2]
+    wl = _cell_items(tgt, cells, cnt, centers, nodes_nd, tcnt)
+    outs = _grad_outs(tgt, nrhs, wl.nparts)
+    _launch("near_field_cells_grad_f64", tgt, (centers, lengths, nodes_nd, mult, wl.items,
+                                               wl.entries, wl.segtab, tcnt), outs,
+            (nodes_nd.shape[0], wl.items.shape[0], wl.segtab.shape[1], nrhs), kparams,
+            grad=True)
+    return outs[:2]
 
 
-def _grad_outs(tgt, nrhs):
+def _cell_items(tgt, cells, cnt, centers, nodes_nd, tcnt):
+    """The work list of a cell table: every listed cell has all its p^d
+    nodes live, and the sentinel is ``ncells``."""
+    return _work_items_on(cells, cnt, tcnt, None, tgt.shape[1], nodes_nd.shape[0],
+                          centers.shape[0] + 1)
+
+
+def _grad_outs(tgt, nrhs, nparts):
+    """Values (R, T, nrhs), gradients (R, T, nrhs, d) and their partial
+    blocks."""
     r, t, d = tgt.shape
-    return (torch.empty((r, t, nrhs), dtype=tgt.dtype, device=tgt.device),
-            torch.empty((r, t, nrhs, d), dtype=tgt.dtype, device=tgt.device))
+    new = lambda *shape: torch.empty(shape, dtype=tgt.dtype, device=tgt.device)  # noqa: E731
+    return new(r, t, nrhs), new(r, t, nrhs, d), new(nparts, _SPAN, nrhs), new(nparts, _SPAN,
+                                                                                nrhs, d)
 
 
 def _launch(name, tgt, inputs, outs, sizes, kparams, grad=False):
@@ -508,37 +541,54 @@ def _plain_grads(tgt, n_src, gather, nrhs, kparams):
     return out, grad
 
 
+def _live_weights(w, scnt):
+    """Weight tiles with the source slots past ``scnt`` zeroed."""
+    if scnt is None:
+        return w
+    slots = torch.arange(w.shape[2], device=w.device)
+    return torch.where((slots[None, :] < scnt[:, None])[:, None, :], w, 0.0)
+
+
+def _zero_dead(outs, tcnt):
+    """Write 0 to the target slots past ``tcnt`` of each output (R, T, ...)."""
+    if tcnt is not None:
+        dead = torch.arange(outs[0].shape[1], device=outs[0].device)[None, :] >= tcnt[:, None]
+        for out in outs:
+            out[dead] = 0.0
+    return outs
+
+
 def near_field_plain(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams, tcnt=None,
                      scnt=None):
     """Plain PyTorch version of :func:`near_field`: gather each row's
     neighbour tiles and contract in one einsum per row chunk; source slots
     past ``scnt`` weigh nothing and target slots past ``tcnt`` are 0."""
-    if scnt is not None:
-        slots = torch.arange(w.shape[2], device=w.device)
-        w = torch.where((slots[None, :] < scnt[:, None])[:, None, :], w, 0.0)
+    w = _live_weights(w, scnt)
     out = _plain_values(tgt, *_tile_gather(tgt, src, w, nbr, cnt), w.shape[1], kparams)
-    if tcnt is not None:
-        slots = torch.arange(tgt.shape[1], device=tgt.device)
-        out[slots[None, :] >= tcnt[:, None]] = 0.0
-    return out
+    return _zero_dead((out,), tcnt)[0]
 
 
-def near_field_grad_plain(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams):
-    """Plain PyTorch version of :func:`near_field_grad`."""
-    return _plain_grads(tgt, *_tile_gather(tgt, src, w, nbr, cnt), w.shape[1], kparams)
+def near_field_grad_plain(tgt, src, w, nbr, cnt=None, *, kparams: KernelParams, tcnt=None,
+                          scnt=None):
+    """Plain PyTorch version of :func:`near_field_grad`, with the counts of
+    :func:`near_field_plain`."""
+    w = _live_weights(w, scnt)
+    outs = _plain_grads(tgt, *_tile_gather(tgt, src, w, nbr, cnt), w.shape[1], kparams)
+    return _zero_dead(outs, tcnt)
 
 
 def near_field_cells_plain(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
-                           kparams: KernelParams):
+                           kparams: KernelParams, tcnt=None):
     """Plain PyTorch version of :func:`near_field_cells`: gather each row's
     virtual nodes and multipole weights and contract in one einsum per row
-    chunk (the JAX package's ``_near_field_class`` with virtual nodes)."""
+    chunk (the JAX package's ``_near_field_class`` with virtual nodes);
+    target slots past ``tcnt`` are 0."""
     gathered = _cell_gather(tgt, cells, cnt, centers, lengths, nodes_nd, mult)
-    return _plain_values(tgt, *gathered, mult.shape[2], kparams)
+    return _zero_dead((_plain_values(tgt, *gathered, mult.shape[2], kparams),), tcnt)[0]
 
 
 def near_field_cells_grad_plain(tgt, cells, cnt, centers, lengths, nodes_nd, mult, *,
-                                kparams: KernelParams):
+                                kparams: KernelParams, tcnt=None):
     """Plain PyTorch version of :func:`near_field_cells_grad`."""
     gathered = _cell_gather(tgt, cells, cnt, centers, lengths, nodes_nd, mult)
-    return _plain_grads(tgt, *gathered, mult.shape[2], kparams)
+    return _zero_dead(_plain_grads(tgt, *gathered, mult.shape[2], kparams), tcnt)

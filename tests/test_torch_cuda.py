@@ -162,6 +162,31 @@ def test_grad_kernel_matches_plain(cuda, name):
             assert float(got_v[0].abs().max()) == 0.0 == float(got_g[0].abs().max())
 
 
+@pytest.mark.parametrize("budget", [nf._ITEM_SOURCES, 64])
+@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
+def test_grad_kernel_with_live_counts_matches_plain(cuda, monkeypatch, name, budget):
+    """H3 with tcnt/scnt on the skewed list (one row of 216 tiles), sparse
+    rows and coincident targets, nrhs {1, 2, 8}: the plain version's
+    values and gradients, 0 on dead slots and the count-0 row, and two
+    launches bitwise equal (at 64 live sources per item most rows are cut
+    into several items)."""
+    monkeypatch.setattr(nf, "_ITEM_SOURCES", budget)
+    kp = _params(name)
+    for nrhs in (1, 2, 8):
+        args, tcnt, scnt = _skewed_operands(np.random.default_rng(13), cuda, torch.float64,
+                                            nrhs)
+        got = nf.near_field_grad(*args, kparams=kp, tcnt=tcnt, scnt=scnt)
+        again = nf.near_field_grad(*args, kparams=kp, tcnt=tcnt, scnt=scnt)
+        want = nf.near_field_grad_plain(*args, kparams=kp, tcnt=tcnt, scnt=scnt)
+        dead = torch.arange(got[0].shape[1], device=cuda)[None, :] >= tcnt[:, None]
+        for g, a, w in zip(got, again, want):
+            assert torch.isfinite(g).all()
+            assert torch.equal(g, a)
+            assert _rel(g, w) < 1e-12
+            assert float(g[dead].abs().max()) == 0.0
+            assert float(g[0].abs().max()) == 0.0  # cnt 0
+
+
 def test_gradients_on_card_match_cpu(cuda):
     """evaluate_with_gradients on the clustered tree (P2P, M2P and P2L all
     present), on the card and on the CPU: the same function."""
@@ -222,7 +247,7 @@ def test_iterative_fit_on_card():
     assert resid < 5e-6, resid
 
 
-def _cell_operands(rng, cuda, dtype):
+def _cell_operands(rng, cuda, dtype, nrhs=3):
     """H4 operands: 40 rows of 100 targets over 9 listed cells of 50 (p = 7,
     343 nodes), sentinel cells, a count-0 row and targets on cell nodes."""
     from ferreus_rbf_tpu_torch.ops.fmm import cheb
@@ -238,7 +263,7 @@ def _cell_operands(rng, cuda, dtype):
     tgt = rng.random((rows, t, 3)) - 0.5
     c = cells[0, 1]
     tgt[1, :10] = centers[c] + (lengths[c] * 0.5) * nodes[:10]  # on cell nodes
-    mult = rng.standard_normal((ncells, nodes.shape[0], 3))
+    mult = rng.standard_normal((ncells, nodes.shape[0], nrhs))
     dev = lambda a, dt=torch.float64: torch.as_tensor(a).to(cuda, dt)  # noqa: E731
     return (dev(tgt, dtype), dev(cells, torch.int32), dev(cnt, torch.int32), dev(centers),
             dev(lengths), dev(nodes), dev(mult, dtype))
@@ -305,3 +330,32 @@ def test_gated_tree_matches_ungated_on_card(cuda, monkeypatch):
         assert cells == (3 if gate == "0" else 0)
     for (got, want), tol in zip(zip(out["0"], out["default"]), (1e-5, 1e-12, 1e-12, 1e-12)):
         assert _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("budget", [nf._ITEM_SOURCES, 64])
+@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
+def test_cells_kernel_with_tcnt_matches_plain(cuda, monkeypatch, name, budget):
+    """H4's three forms with live target counts (rows of 0, 1, 9, 60 and
+    100 live targets), sentinel cells and a count-0 row, nrhs {1, 2, 8}:
+    the plain version's values, 0 on dead slots, two launches bitwise
+    equal."""
+    monkeypatch.setattr(nf, "_ITEM_SOURCES", budget)
+    kp = _params(name)
+    for nrhs in (1, 2, 8):
+        for dtype, grad in ((torch.float32, False), (torch.float64, False),
+                            (torch.float64, True)):
+            rng = np.random.default_rng(14)
+            ops = _cell_operands(rng, cuda, dtype, nrhs)
+            tcnt = torch.as_tensor(rng.choice([0, 1, 9, 60, 100], ops[0].shape[0]),
+                                   dtype=torch.int32, device=cuda)
+            fn = nf.near_field_cells_grad if grad else nf.near_field_cells
+            plain = nf.near_field_cells_grad_plain if grad else nf.near_field_cells_plain
+            got, again = fn(*ops, kparams=kp, tcnt=tcnt), fn(*ops, kparams=kp, tcnt=tcnt)
+            want = plain(*ops, kparams=kp, tcnt=tcnt)
+            dead = torch.arange(ops[0].shape[1], device=cuda)[None, :] >= tcnt[:, None]
+            for g, a, w in zip(got, again, want) if grad else ((got, again, want),):
+                assert torch.isfinite(g).all()
+                assert torch.equal(g, a)
+                assert _rel(g, w) < TOL[dtype]
+                assert float(g[dead].abs().max()) == 0.0
+                assert float(g[0].abs().max()) == 0.0  # the count-0 row
