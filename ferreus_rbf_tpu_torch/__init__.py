@@ -2,11 +2,12 @@
 
 The port of ``ferreus_rbf_tpu`` (JAX/Pallas) to PyTorch, with hand-written
 CUDA kernels for the FMM near field on NVIDIA Hopper. Module paths mirror
-the JAX package's. The slices ported so far are the iterative fit (BBFMM
-matvecs, FGMRES with multilevel Schwarz preconditioning, mixed-precision
-refinement), evaluation with and without gradients, the leaf-only
-evaluator and RMT isosurfacing. Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``.
+the JAX package's. Ported: the iterative fit (BBFMM matvecs, FGMRES with
+multilevel Schwarz preconditioning, mixed-precision refinement), global
+trends, evaluation with and without gradients, the leaf-only evaluator,
+RMT isosurfacing, model I/O (the JAX package's ``ferreus_rbf.json``
+envelope), the builder and the standalone ``bbfmm`` module. Entry points
+run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 import torch as _torch
@@ -28,6 +29,7 @@ from .interpolant_config import (  # noqa: E402
     get_min_drift,
 )
 from .isosurfacing import BoundaryClosure, ClusterMethod, Mesh  # noqa: E402
+from .models.global_trend import GlobalTrend, GlobalTrendTransform  # noqa: E402
 from .models.rbf import Coefficients, RBFInterpolator  # noqa: E402
 from .models.test_functions import RBFTestFunctions  # noqa: E402
 from .progress import Progress, ProgressMsg, closure_sink  # noqa: E402
@@ -49,6 +51,8 @@ __all__ = [
     "FittingAccuracyType",
     "FmmCompressionType",
     "FmmParams",
+    "GlobalTrend",
+    "GlobalTrendTransform",
     "InterpolantSettings",
     "Mesh",
     "Params",

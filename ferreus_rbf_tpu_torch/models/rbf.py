@@ -3,7 +3,9 @@
 Port of ``ferreus_rbf_tpu/models/rbf.py``. The fit pipeline is:
 
 1. optional kernel-aware duplicate removal,
-2. ``N < naive_solve_threshold`` -> one direct ``Domain`` factor + solve on
+2. optional global-trend transform of the points (an affine map pinned at
+   their mean; the drift stays in the input space),
+3. ``N < naive_solve_threshold`` -> one direct ``Domain`` factor + solve on
    the host; otherwise FGMRES (restart 20 x 5) or the stationary DDM
    iteration, preconditioned by the multilevel Schwarz hierarchy over FMM
    matvecs on ``device``.
@@ -12,14 +14,19 @@ Evaluation builds an FMM tree on ``device`` over the union of source and
 target extents, with or without target gradients; ``build_evaluator``
 keeps one tree with its locals for the leaf-only ``evaluate_targets*``
 calls, and ``build_isosurface(s)`` runs regularised marching tetrahedra
-(``rmt``) against it. ``device`` defaults to the CUDA card; pass
-``device="cpu"`` to run on the CPU. Global trends and model I/O are not
-ported yet (ROADMAP.md, queue A) and raise ``NotImplementedError``.
+(``rmt``) against it. Under a trend the trees hold transformed points
+and extents, and gradients come back in the input space (through B^T).
+
+``save_model``/``load_model`` read and write the JAX package's
+``ferreus_rbf.json`` v1 envelope with the same keys, so a model saved by
+either package loads in the other. ``device`` defaults to the CUDA card;
+pass ``device="cpu"`` to run on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Optional
 
@@ -36,6 +43,10 @@ from ..ops.fmm.api import FmmTree, resolve_device
 from ..progress import DuplicatesRemoved, Message, Progress
 from ..solver.domain import Coefficients, Domain
 from ..utils import common
+from .global_trend import GlobalTrend, GlobalTrendTransform
+
+JSON_FORMAT_NAME = "ferreus_rbf.json"
+JSON_VERSION = 1
 
 
 def duplicate_cutoff_distance(h_ref: float, interpolant_settings: InterpolantSettings) -> float:
@@ -85,13 +96,6 @@ def _scalar_or_matrix(values: np.ndarray) -> np.ndarray:
     return v[:, 0] if v.ndim == 2 and v.shape[1] == 1 else v
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to ferreus_rbf_tpu_torch yet (ROADMAP.md, queue A: {item}); "
-        "use ferreus_rbf_tpu"
-    )
-
-
 class RBFInterpolator:
     """Radial basis function interpolator (fitted on construction).
 
@@ -106,13 +110,11 @@ class RBFInterpolator:
         values,
         interpolant_settings: InterpolantSettings,
         params: Optional[Params] = None,
-        global_trend=None,
+        global_trend: Optional[GlobalTrend] = None,
         progress_callback: Optional[Progress] = None,
         device=None,
         _skip_solve: bool = False,
     ):
-        if global_trend is not None:
-            _not_ported("global_trend", "global trends")
         device = resolve_device(device)
         solver_start = time.perf_counter()
         points = np.asarray(points, np.float64)
@@ -139,6 +141,11 @@ class RBFInterpolator:
                 )
                 points = points[idx]
                 values = values[idx]
+
+        self.global_trend = None
+        if global_trend is not None:
+            self.global_trend = GlobalTrendTransform(points.mean(axis=0), global_trend)
+            points = self.global_trend.transform_points(points)
 
         self.points = points
         self.point_values = values
@@ -176,11 +183,16 @@ class RBFInterpolator:
         scale_factor,
         params: Optional[Params] = None,
         device=None,
+        global_trend=None,
     ) -> "RBFInterpolator":
-        """A fitted interpolator from another fit's arrays, without solving
-        (for example the JAX package's ``points``, ``coefficients`` and
-        scaling factors)."""
+        """A fitted interpolator from another fit's arrays, without solving:
+        the way a JAX package model comes across (its ``points``,
+        ``coefficients``, scaling factors and, under a trend, its
+        ``global_trend``, a ``GlobalTrendTransform`` or its ``to_dict()``)."""
         model = cls(points, values, settings, params=params, device=device, _skip_solve=True)
+        if isinstance(global_trend, dict):
+            global_trend = GlobalTrendTransform.from_dict(global_trend)
+        model.global_trend = global_trend
         model.coefficients = Coefficients(
             np.asarray(point_coefficients, np.float64).reshape(model.points.shape[0], -1),
             poly_coefficients,
@@ -199,7 +211,7 @@ class RBFInterpolator:
         if num_points < self.params.naive_solve_threshold:
             domain = Domain(np.arange(num_points))
             domain.internal_points_mask = np.ones(num_points, dtype=bool)
-            domain.factorise(self.points, self.interpolant_settings, True)
+            domain.factorise(self.points, self.interpolant_settings, True, self.global_trend)
             sol = domain.solve(self.point_values)
             point_coefficients = np.zeros_like(sol.point_coefficients)
             point_coefficients[domain.overlapping_point_indices] = sol.point_coefficients
@@ -208,6 +220,9 @@ class RBFInterpolator:
             from ..solver.iterative import iterative_fit
 
             self.coefficients = iterative_fit(self)
+
+        if self.global_trend is not None:
+            self.points = self.global_trend.inverse_transform_points(self.points)
 
     # ----------------------------------------------------------- properties
     @property
@@ -220,10 +235,21 @@ class RBFInterpolator:
 
     # ----------------------------------------------------------- evaluation
     def _make_evaluator(self, sparse: bool, extents=None) -> FmmTree:
+        """An FMM tree over the (trend-transformed) points; under a trend the
+        extents' corners are transformed before their box is taken."""
+        pts = self.points
+        if self.global_trend is not None:
+            pts = self.global_trend.transform_points(pts)
+            if extents is not None:
+                d = pts.shape[1]
+                extents = np.asarray(extents, np.float64)
+                corners = common.bounding_box_corners(extents[:d], extents[d:])
+                extents = common.get_pointarray_extents(
+                    self.global_trend.transform_points(corners))
         if extents is None:
-            extents = common.get_pointarray_extents(self.points)
+            extents = common.get_pointarray_extents(pts)
         return FmmTree(
-            self.points,
+            pts,
             self.params.fmm_params.interpolation_order,
             self.interpolant_settings.kernel_params(),
             adaptive_tree=True,
@@ -245,16 +271,26 @@ class RBFInterpolator:
     def _evaluate(self, tree: FmmTree, target_points, evaluate_gradients: bool,
                   add_nugget: bool, leaves_mode: bool):
         """FMM values (and gradients) + nugget + polynomial drift (and its
-        gradient). Gradients come back (n, nrhs * d)."""
+        gradient). Gradients come back (n, nrhs * d). Under a trend the tree
+        sees transformed targets, and x' = x B + b turns its gradients into
+        the input space's as g B^T; the drift takes the raw targets."""
         targets = np.asarray(target_points, np.float64)
+        tree_targets = targets
+        if self.global_trend is not None:
+            tree_targets = self.global_trend.transform_points(targets)
         weights = self.coefficients.point_coefficients
         gradients = None
         if evaluate_gradients:
             fn = tree.evaluate_leaves_with_gradients if leaves_mode else tree.evaluate_with_gradients
-            values, gradients = fn(weights, targets)
+            values, gradients = fn(weights, tree_targets)
+            if self.global_trend is not None:
+                d, nrhs = targets.shape[1], weights.shape[1]
+                bt = self.global_trend.linear_part(d).T
+                gradients = np.einsum("nrj,jk->nrk", gradients.reshape(-1, nrhs, d),
+                                      bt).reshape(-1, nrhs * d)
         else:
             fn = tree.evaluate_leaves if leaves_mode else tree.evaluate
-            values = fn(weights, targets)
+            values = fn(weights, tree_targets)
         if add_nugget:
             values = values + weights * self.interpolant_settings.nugget
         if self.interpolant_settings.basis_size != 0:
@@ -338,10 +374,91 @@ class RBFInterpolator:
             for isovalue in isovalues
         ]
 
-    # ------------------------------------------------------ not ported yet
-    def save_model(self, path):
-        _not_ported("save_model", "model I/O")
+    # ------------------------------------------------------------ model I/O
+    def _model_dict(self) -> dict:
+        return {
+            "format": JSON_FORMAT_NAME,
+            "version": JSON_VERSION,
+            "points": self.points.tolist(),
+            "point_values": self.point_values.tolist(),
+            "coefficients": self.coefficients.to_dict(),
+            "interpolant_settings": self.interpolant_settings.to_dict(),
+            "translation_factor": np.asarray(self.translation_factor).tolist(),
+            "scale_factor": np.asarray(self.scale_factor).tolist(),
+            "params": self.params.to_dict(),
+            "global_trend": None if self.global_trend is None else self.global_trend.to_dict(),
+        }
+
+    def save_model(self, path) -> None:
+        """Save to the versioned JSON envelope ``{format, version, ...model}``
+        (the JAX package's keys)."""
+        with open(path, "w") as fh:
+            json.dump(self._model_dict(), fh)
 
     @classmethod
-    def load_model(cls, path, progress_callback=None):
-        _not_ported("load_model", "model I/O")
+    def load_model(cls, path, progress_callback: Optional[Progress] = None,
+                   device=None) -> "RBFInterpolator":
+        """Load and validate the JSON envelope; the model evaluates on
+        ``device`` (the CUDA card by default)."""
+        with open(path) as fh:
+            env = json.load(fh)
+        if env.get("format") != JSON_FORMAT_NAME:
+            raise ValueError(
+                f"unsupported format {env.get('format')!r} (expected {JSON_FORMAT_NAME!r})"
+            )
+        if env.get("version") != JSON_VERSION:
+            raise ValueError(
+                f"unsupported version {env.get('version')} (expected {JSON_VERSION})"
+            )
+        model = cls.__new__(cls)
+        model.device = resolve_device(device)
+        model.interpolant_settings = InterpolantSettings.from_dict(env["interpolant_settings"])
+        model.params = Params.from_dict(env["params"])
+        model.points = np.asarray(env["points"], np.float64)
+        model.point_values = np.asarray(env["point_values"], np.float64)
+        model.coefficients = Coefficients.from_dict(env["coefficients"])
+        model.translation_factor = np.asarray(env["translation_factor"], np.float64)
+        model.scale_factor = np.asarray(env["scale_factor"], np.float64)
+        trend = env.get("global_trend")
+        model.global_trend = None if trend is None else GlobalTrendTransform.from_dict(trend)
+        model.progress_callback = progress_callback
+        model._evaluator = None
+        return model
+
+    @classmethod
+    def builder(cls, points, values, interpolant_settings: InterpolantSettings,
+                device=None) -> "_RBFInterpolatorBuilder":
+        return _RBFInterpolatorBuilder(points, values, interpolant_settings, device)
+
+
+class _RBFInterpolatorBuilder:
+    """Fluent builder: ``RBFInterpolator.builder(points, values, settings)
+    .params(...).global_trend(...).progress_callback(...).build()``."""
+
+    def __init__(self, points, values, interpolant_settings: InterpolantSettings, device=None):
+        self._points = points
+        self._values = values
+        self._settings = interpolant_settings
+        self._device = device
+        self._params: Optional[Params] = None
+        self._global_trend: Optional[GlobalTrend] = None
+        self._progress: Optional[Progress] = None
+
+    def params(self, params: Params):
+        self._params = params
+        return self
+
+    def global_trend(self, global_trend: GlobalTrend):
+        self._global_trend = global_trend
+        return self
+
+    def progress_callback(self, progress: Progress):
+        self._progress = progress
+        return self
+
+    def build(self) -> RBFInterpolator:
+        return RBFInterpolator(
+            self._points, self._values, self._settings, params=self._params,
+            global_trend=self._global_trend, progress_callback=self._progress,
+            device=self._device,
+        )

@@ -573,9 +573,15 @@ class FmmTree:
                     f64["cell_lengths"][leaves[sl]], f64["nodes_t"], self.d,
                 ) * self._dev["src_mask"][sl, :, None]
                 mult[leaves[sl]] = torch.bmm(wt[sl], w.to(wt.dtype)).transpose(1, 2)
+        # A parent takes up to 2^d children, one per octant; within one
+        # octant row the parents are unique. One index_add_ per octant, in
+        # octant order, adds each parent's children in a fixed order, so
+        # repeat passes on the card are bitwise equal (one add over all
+        # octants would race its atomics).
         for ch, pa in self._dev["m2m_groups"]:
             contrib = torch.einsum("opq,ocqr->ocpr", fs["m2m_ops"], mult[ch])
-            mult.index_add_(0, pa.reshape(-1), contrib.reshape(-1, self.nnodes, nr))
+            for o in range(pa.shape[0]):
+                mult.index_add_(0, pa[o], contrib[o])
         return mult[:ncells]
 
     def _downward(self, mult, wt, fs):
@@ -600,6 +606,8 @@ class FmmTree:
                 fs["p2l_nodes"], fs["src_tiles"], wt, self._dev["p2l_nbr"],
                 self._dev["p2l_cnt"], kparams=self.kernel_params, scnt=self._dev["src_scnt"])
 
+        # each child has one parent: the scatter writes unique rows (and the
+        # discarded sink), so one index_add_ per level is deterministic
         for ch, pa in self._dev["l2l_groups"]:
             contrib = torch.einsum("opq,ocpr->ocqr", fs["m2m_ops"], local[pa])
             local.index_add_(0, ch.reshape(-1), contrib.reshape(-1, nn, nr))
@@ -688,6 +696,10 @@ class FmmTree:
         return mt
 
     # ------------------------------------------------------------ public
+    @property
+    def source_points(self) -> np.ndarray:
+        return self._points
+
     def _as_weights(self, weights):
         w = torch.as_tensor(weights, dtype=torch.float64, device=self.device)
         return w.reshape(self._points.shape[0], -1)

@@ -82,13 +82,15 @@ def _factor_chunk(s_pad: int) -> int:
     return max(1, int(2e9 // (s_pad * s_pad * 8 * 6)))
 
 
-def _leaf_qtaq_structure(points, indices, internal_mask, settings):
+def _leaf_qtaq_structure(points, indices, internal_mask, settings, global_trend=None):
     """Special-point selection + Q_top for one leaf (host; the same
-    procedure as ``Domain.factorise`` without assembling A)."""
+    procedure as ``Domain.factorise`` without assembling A, monomials on
+    the inverse-transformed points under a trend)."""
     dpts = points[indices]
     translation, scale = get_cheb_cube_scaling_factors(dpts)
+    mpts = global_trend.inverse_transform_points(dpts) if global_trend is not None else dpts
     monomials = evaluate_monomials(
-        dpts, settings.polynomial_degree, settings.basis_size, translation, scale
+        mpts, settings.polynomial_degree, settings.basis_size, translation, scale
     )
     _, rc, piv = scipy.linalg.qr(monomials, mode="economic", pivoting=True)
     rank = _rank_from_pivoted_qr(rc)
@@ -117,9 +119,14 @@ def factor_bucket(pts, mask, q_top, *, kparams, nugget, k, dtype):
     Cholesky still fails are refactored with a 1e-4 relative diagonal shift
     (this perturbs only the preconditioner, and FGMRES is flexible). Blocks
     that fail even shifted are reported in ``failed``.
+
+    Each domain's points are moved to its first point in f64 before the
+    cast: the kernels depend only on distances, and real-world coordinates
+    (northings ~7.7e6, where f32 resolves 0.5) would otherwise lose the
+    spacing of close points in f32.
     """
     kernel = make_kernel(kparams, dtype=dtype)
-    pts = pts.to(dtype)
+    pts = (pts - pts[:, :1]).to(dtype)
     a = kernel.pair(pts, pts)
     s = pts.shape[1]
     eye = torch.eye(s, dtype=dtype, device=pts.device)
@@ -172,7 +179,13 @@ def solve_bucket(residual, bucket, n_out):
 
 
 class DDMTree:
-    """The multilevel overlapping decomposition, finest level first."""
+    """The multilevel overlapping decomposition, finest level first.
+
+    ``points`` are the fit's points (transformed under a ``global_trend``);
+    with a trend every leaf's QTAQ structure and the coarse domain take
+    their monomials on the inverse-transformed points. A recompute level
+    assembles from the same stored structure (``q_top``, the special-point
+    order), so it applies the trended blocks too."""
 
     def __init__(
         self,
@@ -182,10 +195,12 @@ class DDMTree:
         factor_dtype=torch.float64,
         *,
         device,
+        global_trend=None,
     ):
         self.points = np.asarray(points, np.float64)
         self.settings = interpolant_settings
         self.params = ddm_params
+        self.global_trend = global_trend
         self.factor_dtype = factor_dtype
         self.device = torch.device(device)
         self.levels: list[Level] = []
@@ -294,7 +309,7 @@ class DDMTree:
                     )
                     if self.settings.basis_size != 0:
                         all_idx, internal, q_top, rank = _leaf_qtaq_structure(
-                            pts, all_idx, internal, self.settings
+                            pts, all_idx, internal, self.settings, self.global_trend
                         )
                     else:
                         q_top, rank = None, 0
@@ -313,7 +328,7 @@ class DDMTree:
         coarse_level = Level(active)
         dom = Domain(active.copy())
         dom.internal_points_mask = np.ones(active.size, bool)
-        dom.factorise(pts, self.settings, self.settings.basis_size != 0)
+        dom.factorise(pts, self.settings, self.settings.basis_size != 0, self.global_trend)
         coarse_level.coarse_domain = dom
         coarse_level.coarse_idx = torch.as_tensor(dom.overlapping_point_indices, device=self.device)
         self.levels.append(coarse_level)

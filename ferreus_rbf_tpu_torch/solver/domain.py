@@ -41,6 +41,20 @@ class Coefficients:
             None if poly_coefficients is None else np.asarray(poly_coefficients, np.float64)
         )
 
+    def to_dict(self) -> dict:
+        return {
+            "point_coefficients": self.point_coefficients.tolist(),
+            "poly_coefficients": None
+            if self.poly_coefficients is None
+            else self.poly_coefficients.tolist(),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Coefficients":
+        poly = d.get("poly_coefficients")
+        return cls(np.asarray(d["point_coefficients"], np.float64),
+                   None if poly is None else np.asarray(poly, np.float64))
+
 
 def _rank_from_pivoted_qr(r: np.ndarray) -> int:
     """Effective rank: number of |R_ii| above 1e-10 * |R_00|."""
@@ -113,8 +127,14 @@ class Domain:
         source_points: np.ndarray,
         interpolant_settings: InterpolantSettings,
         solve_for_poly: bool,
+        global_trend=None,
     ) -> None:
-        """Build and factorise the local system (QTAQ when drift present)."""
+        """Build and factorise the local system (QTAQ when drift present).
+
+        Under a ``global_trend`` the points are the transformed ones: the
+        monomials are taken on the inverse-transformed points, while the
+        Chebyshev scaling factors stay those of the transformed points, as
+        in the JAX package."""
         pts = np.asarray(source_points, np.float64)
         kparams = interpolant_settings.kernel_params()
         nugget = interpolant_settings.nugget
@@ -122,8 +142,13 @@ class Domain:
 
         if interpolant_settings.basis_size != 0:
             translation, scale = get_cheb_cube_scaling_factors(domain_points)
+            monomial_points = (
+                global_trend.inverse_transform_points(domain_points)
+                if global_trend is not None
+                else domain_points
+            )
             monomials = evaluate_monomials(
-                domain_points,
+                monomial_points,
                 interpolant_settings.polynomial_degree,
                 interpolant_settings.basis_size,
                 translation,

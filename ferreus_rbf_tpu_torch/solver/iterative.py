@@ -14,13 +14,15 @@ Schwarz leaf solves and the polynomial block stay on ``device``.
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 
 from ..config import Solvers
 from ..ops.fmm.api import FmmTree
 from ..ops.polynomials import evaluate_monomials
-from ..utils.timing import traced_stage
+from ..utils.timing import global_tracer, record_event, traced_stage
 from . import fgmres as solvers
 from .ddm import DDMTree
 from .domain import Coefficients
@@ -55,8 +57,12 @@ class DeviceSystem:
         self.monomial_dev = None
         self.ortho_poly = None
         if self.m != 0:
+            # under a trend the drift lives in the input space: monomials of
+            # the inverse-transformed points, scaled by the fit's factors
+            trend = rbfi.global_trend
             monomials = evaluate_monomials(
-                points, settings.polynomial_degree, self.m,
+                trend.inverse_transform_points(points) if trend is not None else points,
+                settings.polynomial_degree, self.m,
                 rbfi.translation_factor, rbfi.scale_factor,
             )
             self.monomial_dev = torch.as_tensor(monomials, device=dev)
@@ -66,6 +72,7 @@ class DeviceSystem:
         with traced_stage("ddm_tree_build"):
             self.ddm_tree = DDMTree(
                 points, settings, params.ddm_params, factor_dtype=factor_dtype, device=dev,
+                global_trend=rbfi.global_trend,
             )
 
         # per-level target binnings for the restricted matvecs the Schwarz
@@ -143,6 +150,39 @@ def iterative_fit(rbfi):
         point_coefficients[:, col] = sol[:n, 0]
         if m:
             poly_coefficients[:, col] = sol[n:, 0]
+
+    # One-M-step preconditioner diagnostic, stashed on the interpolator and
+    # not run inline, so the fit's wall-clock stays raw. One preconditioner
+    # application and two matvecs: the one-M-step residual at both tiers
+    # (is M weak, or is A inexact at this tier?) and the f32-vs-f64
+    # operator discrepancy on z = M b. The port's f64 tier is plain f64
+    # (the JAX package's "f64grade" key is kept for its readers). It keeps
+    # the fit's host inputs, not its device system (at 1M points tens of
+    # GB of tables and factors), and rebuilds the system when called.
+    fit_state = types.SimpleNamespace(
+        points=rbfi.points, interpolant_settings=settings, params=params,
+        device=rbfi.device, translation_factor=rbfi.translation_factor,
+        scale_factor=rbfi.scale_factor, global_trend=rbfi.global_trend)
+
+    def _m_step_diagnostic(_state=fit_state, _rhs=rhs):
+        system = DeviceSystem(_state)
+        b0 = torch.as_tensor(_rhs[:, :1], device=_state.device)
+        nb = max(float(torch.linalg.norm(b0)), 1e-300)
+        z = system.precon(b0)
+        az32 = system.matvec(z, precision="f32")
+        az64 = system.matvec(z)
+        disc = float(torch.linalg.norm(az32 - az64)) / max(float(torch.linalg.norm(az64)),
+                                                            1e-300)
+        out = {
+            "one_m_step_residual_f32": float(torch.linalg.norm(b0 - az32)) / nb,
+            "one_m_step_residual_f64grade": float(torch.linalg.norm(b0 - az64)) / nb,
+            "matvec_tier_discrepancy_on_Mb": disc,
+        }
+        if global_tracer() is not None:
+            record_event("m_step", out)
+        return out
+
+    rbfi.m_step_diagnostic = _m_step_diagnostic
     return Coefficients(point_coefficients, poly_coefficients)
 
 

@@ -229,6 +229,44 @@ def test_fmm_matvec_on_card_matches_cpu(cuda, precision):
     assert _rel(out["cuda"], out["cpu"]) < tol
 
 
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_repeat_matvecs_on_card_are_bitwise(cuda, precision):
+    """Two evaluate_device calls on one tree give the same bits: the M2M
+    adds its octants in a fixed order (no racing atomics)."""
+    rng = np.random.default_rng(4)
+    blob = rng.normal(scale=0.02, size=(2000, 3)) + 0.25
+    pts = np.clip(np.concatenate([blob, rng.random((500, 3))]), 0, 1)
+    params = frt.FmmParams(interpolation_order=4, max_points_per_cell=32, epsilon=1e-4)
+    tree = FmmTree(pts, 4, _params("LinearRbf"), adaptive_tree=True, sparse=True,
+                   params=params, device=cuda)
+    tree.prepare_targets(pts, "src")
+    w = torch.as_tensor(rng.standard_normal((pts.shape[0], 2)), device=cuda)
+    first = tree.evaluate_device(w, "src", precision)
+    assert torch.equal(tree.evaluate_device(w, "src", precision), first)
+
+
+def test_trend_fit_save_load_on_card_is_bitwise(cuda, tmp_path):
+    """A fit under a trend on the iterative path, saved and loaded on the
+    card: values and gradients bit for bit the fitted model's."""
+    pts = frt.generate_random_points(2000, 3, seed=8)
+    vals = frt.RBFTestFunctions.f1_3d(pts)
+    params = frt.Params.builder(frt.RBFKernelType.Linear).naive_solve_threshold(1000).build()
+    params.ddm_params = frt.DDMParams(leaf_threshold=300, overlap_quota=0.5,
+                                      coarse_ratio=0.25, coarse_threshold=800)
+    rbfi = (frt.RBFInterpolator.builder(pts, vals, frt.InterpolantSettings(
+        kernel_type=frt.RBFKernelType.Linear), device="cuda")
+        .params(params).global_trend(frt.GlobalTrend.three(30.0, 45.0, 0.0, 2.0, 1.5, 1.0))
+        .build())
+    assert np.max(np.abs(rbfi.evaluate_at_source(True) - vals)) < 5e-6
+    rbfi.save_model(tmp_path / "m.json")
+    loaded = frt.RBFInterpolator.load_model(tmp_path / "m.json", device="cuda")
+    grid = frt.create_evaluation_grid([(0.1, 0.9)] * 3, [12, 12, 12])
+    assert np.array_equal(loaded.evaluate(grid), rbfi.evaluate(grid))
+    for got, want in zip(loaded.evaluate_with_gradients(grid),
+                         rbfi.evaluate_with_gradients(grid)):
+        assert np.array_equal(got, want)
+
+
 def test_iterative_fit_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -16,10 +16,23 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import ferreus_rbf_tpu as jrt
 import ferreus_rbf_tpu_torch as prt
 from ferreus_rbf_tpu_torch.utils import timing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several workers on
+    the CPU's cores, and a torch thread pool per worker oversubscribes them;
+    the port's CPU fits, thousands of small parallel regions, then spend
+    their time in thread barriers and run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _iter_params(mod, kernel_type, leaf=300, coarse=800):
@@ -131,6 +144,32 @@ def test_tps_drift_fit_2d():
     assert resid < 5e-6, resid
 
 
+@pytest.mark.parametrize("offset", [0.0, 3.3e5, 7.7e6])
+def test_f32_factors_keep_real_world_coordinates(offset):
+    """A batch of Schwarz blocks of close points (spacing ~1, as in the
+    albatite dataset) factored in f32 at world offsets up to a northing of
+    7.7e6 (where f32 resolves 0.5): the factors stay those of the points at
+    the origin, within f32 rounding of the block."""
+    import torch
+
+    from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType
+    from ferreus_rbf_tpu_torch.solver.ddm import factor_bucket
+
+    rng = np.random.default_rng(12)
+    pts = torch.as_tensor(rng.random((4, 96, 3)) * 20.0)
+    mask = torch.ones((4, 96), dtype=torch.bool)
+    mask[3, 80:] = False
+    q_top = torch.zeros((4, 1, 95), dtype=torch.float64)
+    q_top[:] = -1.0  # the constant drift's Q_top: one special point
+    q_top[3, :, 79:] = 0.0  # the padded columns of the 80-point domain
+    kw = dict(kparams=KernelParams(KernelType.LinearRbf), nugget=0.0, k=1,
+              dtype=torch.float32)
+    want, want_failed = factor_bucket(pts, mask, q_top, **kw)
+    got, failed = factor_bucket(pts + offset, mask, q_top, **kw)
+    assert not bool(want_failed.any()) and not bool(failed.any())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 def test_host_refactor_indefinite_block_falls_back_spd():
     """A genuinely indefinite leaf block (TPS without QTAQ reduction) comes
     back as a finite SPD factor: the shift loop cannot rescue it, so the
@@ -154,25 +193,12 @@ def test_host_refactor_indefinite_block_falls_back_spd():
     assert np.allclose(low, np.tril(low)) and (np.diag(low) > 0).all()
 
 
-def test_parts_not_ported_raise():
-    """Model I/O and global trends are the parts still to port."""
-    pts = prt.generate_random_points(50, 3, seed=1)
-    rbfi = prt.RBFInterpolator(
-        pts, pts[:, 0], prt.InterpolantSettings(kernel_type=prt.RBFKernelType.Linear),
-        device="cpu")
-    for call in (lambda: rbfi.save_model("model.json"),
-                 lambda: prt.RBFInterpolator.load_model("model.json")):
-        with pytest.raises(NotImplementedError, match="model I/O"):
-            call()
-    with pytest.raises(NotImplementedError, match="global trends"):
-        prt.RBFInterpolator(pts, pts[:, 0], prt.InterpolantSettings(
-            kernel_type=prt.RBFKernelType.Linear), global_trend=object(), device="cpu")
-
-
 def test_port_imports_without_jax():
     code = (
         "import sys, ferreus_rbf_tpu_torch\n"
         "from ferreus_rbf_tpu_torch.solver import iterative\n"
+        "from ferreus_rbf_tpu_torch import bbfmm\n"
+        "from ferreus_rbf_tpu_torch.ops.fmm import diagnostics\n"
         "from ferreus_rbf_tpu_torch.ops.fmm import api, near_field\n"
         "from ferreus_rbf_tpu_torch import isosurfacing, rmt\n"
         "from ferreus_rbf_tpu_torch.rmt import isosurface, seed_projection\n"
