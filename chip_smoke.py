@@ -31,7 +31,12 @@ Phases (any failure raises and the script exits non-zero):
    P2L legs (H3: P2P, M2P) with their live counts, live pair rates and
    live shares; H3's launches in the 64^3 gradients and an estimate of
    their device time (each table's last operands re-timed, times its
-   calls) against the evaluation's wall-clock;
+   calls) against the evaluation's wall-clock; the fit's solver path: the
+   fused FGMRES (``solver/fused.py``) with its cycles replayed from a CUDA
+   graph and one host pull per cycle, then a second fused fit bit for bit
+   the first, one replayed cycle bit for bit the eager cycle, a whole
+   cycle timed both ways, and the host loop (``FERREUS_RBF_TPU_FUSED=0``),
+   both converged and agreeing within 1e-2 * (max |c| + 1);
 5. config-2 gradients (the JAX bench's gradient cell): 100k uniform points,
    Spheroidal5, p = 5, 2 RHS, adaptive sparse tree, ``evaluate_with_gradients``
    at the sources against value-only ``evaluate`` and a dense f64 oracle;
@@ -49,7 +54,8 @@ Phases (any failure raises and the script exits non-zero):
    P2M/L2P weight budget switched; the fit's near-field calls per leg, and
    H1/H2 timed on the fit's own last operands of each neighbour table (P2P
    and M2P of "__all__" and of each DDM level set, P2L) against the plain
-   version, with the table's calls in the fit;
+   version, with the table's calls in the fit; the fit's solver path and
+   the gate that kept the host loop;
 8. the M2P node-tile gate at 1M: phase 7's weights on one tree with the
    gate at its default and one with ``FERREUS_RBF_TPU_NODETILE_BYTES=0``
    (gated, M2P on H4): f32 and f64 matvecs and gradients at 4,096 sources,
@@ -62,9 +68,10 @@ Phases (any failure raises and the script exits non-zero):
    the trend of ``examples/isosurface_trend_linear.py`` (LinearRbf,
    ``GlobalTrend.three(30, 45, 0, 2.0, 1.5, 1.0)``) through
    ``RBFInterpolator.builder``: fit seconds, residual, ``evaluate_at_source``
-   and the fit's H1/H2 launches; (b) ``evaluate_with_gradients`` on the
-   64^3 grid against a dense f64 gradient through the trend's Jacobian on
-   1,024 grid points, with its H3 launches; (c) ``save_model`` and
+   and the fit's H1/H2 launches and solver path; (b)
+   ``evaluate_with_gradients`` on the 64^3 grid against a dense f64
+   gradient through the trend's Jacobian on 1,024 grid points, with its
+   H3 launches; (c) ``save_model`` and
    ``load_model(..., device="cuda")``: the loaded model's values and
    gradients on the grid bit for bit the fitted model's; (d) its
    isosurface at span/100 with phase 6's checks; (e) ``bbfmm.FmmTree`` with
@@ -579,13 +586,18 @@ class LegCounter:
     without one), or ``api.near_field_grad`` (H3: P2P and M2P) when ``name``
     says so, to count its calls per (leg, dtype) and per neighbour table,
     and keep each table's last operands; ``LAUNCHES`` still counts the
-    launches themselves."""
+    launches themselves. Its per-leg counts sit in ``fused.COUNTS`` while
+    it is installed, so that a replayed solver cycle adds its calls."""
 
     def __init__(self, api, name="near_field"):
         self.api, self.name, self.real = api, name, getattr(api, name)
         self.calls, self.last = {}, {}
 
     def __enter__(self):
+        from ferreus_rbf_tpu_torch.solver import fused
+
+        fused.COUNTS.append(self.calls)  # a graph replay adds its calls too
+
         def counted(tgt, src, w, nbr, cnt=None, **kw):
             leg = "p2l" if kw.get("tcnt") is None else "m2p" if cnt is not None else "p2p"
             key = f"{leg}_{str(tgt.dtype).split('.')[-1]}"
@@ -599,7 +611,10 @@ class LegCounter:
         return self
 
     def __exit__(self, *exc):
+        from ferreus_rbf_tpu_torch.solver import fused
+
         setattr(self.api, self.name, self.real)
+        fused.COUNTS[:] = [c for c in fused.COUNTS if c is not self.calls]
 
 
 def h3_launch_time(nf, kparams, legs, wall_s, prefix):
@@ -722,6 +737,126 @@ def kernel_entry(name, launches, m):
             "bound_by": m["bound_by"], "library_ms": None}
 
 
+FUSED_ENV = "FERREUS_RBF_TPU_FUSED"
+
+
+def solver_path(tracer, fit_s, peak_gb, messages=None):
+    """Which solver path a fit took, the gate that decided it and the
+    fused path's numbers, from the fit's tracer; ``messages`` are the fit's
+    progress messages (one ``SolverIteration`` per inner iteration)."""
+    from ferreus_rbf_tpu_torch.progress import SolverIteration
+
+    ev = {e["event"]: e for e in tracer.events}
+    built, stats = ev.get("fused_system"), ev.get("fused_solve")
+    rec = {"fused": bool(built and built["ok"]),
+           "gate": f"{FUSED_ENV}=0" if built is None else built["gate"],
+           "factor_mb": None if built is None else round(built["factor_bytes"] / 2**20, 3)}
+    if stats:
+        rec.update({k: v for k, v in stats.items() if k != "event"},
+                   capture_s=round(stats["capture_s"], 4),
+                   host_pulls_per_cycle=stats["host_pulls"] / stats["cycles"])
+    if messages is not None:
+        rec["inner_iterations"] = sum(isinstance(m, SolverIteration) for m in messages)
+    rec.update(refinement_rounds=sum(e["event"] == "refine_round" for e in tracer.events),
+               residual=ev["solve_done"]["residual"],
+               solve_column_s=round(tracer.totals.get("solve_column", 0.0), 4),
+               fit_s=round(fit_s, 4), peak_gb=round(peak_gb, 4))
+    return rec
+
+
+def fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit):
+    """Phase 4's solver paths: the fit (``fused_fit``) on the fused path
+    with its cycles replayed from graphs and one host pull per cycle; a
+    second fused fit, timed, bit for bit the first, whose system then
+    replays one cycle that must be bit for bit the same cycle run eagerly
+    (and times a whole cycle both ways); and the host loop
+    (``FERREUS_RBF_TPU_FUSED=0``) on the same data, converged and within
+    1e-2 * (max |c| + 1) of the fused coefficients."""
+    from ferreus_rbf_tpu_torch.solver import fused
+
+    kept = []
+    init = fused.FusedSystem.__init__
+
+    def keep(self, system):
+        init(self, system)
+        kept.append(self)
+
+    fused.FusedSystem.__init__ = keep
+    tracer = timing.enable_global_tracer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    inner = []
+    t0 = time.perf_counter()
+    try:
+        again = frt.RBFInterpolator(pts, vals, settings, device=dev,
+                                    progress_callback=frt.Progress(inner.append))
+        torch.cuda.synchronize()
+    finally:
+        fused.FusedSystem.__init__ = init
+        timing.disable_global_tracer()
+    warm_fit = solver_path(tracer, time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated(dev) / 1e9, inner)
+    fs = kept[0]
+    same = [np.array_equal(getattr(again.coefficients, k), getattr(rbfi.coefficients, k))
+            for k in ("point_coefficients", "poly_coefficients")]
+    # one cycle of the fit's f32 graph, replayed and run eagerly
+    b = torch.zeros((fs.n + fs.m, 1), dtype=torch.float64, device=dev)
+    b[: fs.n, 0] = torch.as_tensor(rbfi.point_values[:, 0], device=dev)
+    args = ("f32", False, 5, b, torch.zeros_like(b), b, float(torch.linalg.norm(b)), 1e-5)
+    replays = fs.stats["replays"]
+    replay = fs.cycle(*args)
+    eager = fs.cycle(*args, eager=True)
+    cycle_same = (fs.stats["replays"] == replays + 1 and torch.equal(replay[0], eager[0])
+                  and torch.equal(replay[1], eager[1]) and np.array_equal(replay[2], eager[2]))
+    # a whole cycle (all 5 steps: tol 1e-14), replayed and eager; each call
+    # ends in its host pull
+    cycle_ms = {}
+    for name, eager_run in (("replayed", False), ("eager", True)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fs.cycle(*args[:-1], 1e-14, eager=eager_run)
+            times.append(time.perf_counter() - t0)
+        cycle_ms[name] = round(sorted(times)[1] * 1e3, 3)
+    del fs, kept, again, replay, eager
+
+    tracer = timing.enable_global_tracer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    if FUSED_ENV in os.environ:
+        raise RuntimeError(f"unset {FUSED_ENV}: phase 4 compares the fused path with 0")
+    os.environ[FUSED_ENV] = "0"
+    inner = []
+    t0 = time.perf_counter()
+    try:
+        host = frt.RBFInterpolator(pts, vals, settings, device=dev,
+                                   progress_callback=frt.Progress(inner.append))
+        torch.cuda.synchronize()
+    finally:
+        del os.environ[FUSED_ENV]
+        timing.disable_global_tracer()
+    host_fit = solver_path(tracer, time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated(dev) / 1e9, inner)
+    cf, ch = rbfi.coefficients.point_coefficients, host.coefficients.point_coefficients
+    apart = float(np.max(np.abs(cf - ch)))
+    bound = 1e-2 * (float(np.max(np.abs(ch))) + 1.0)
+    log(f"phase 4: fused fit {json.dumps(fused_fit)}")
+    log(f"phase 4: fused fit again (same process, warm) {json.dumps(warm_fit)}")
+    log(f"phase 4: host-loop fit ({FUSED_ENV}=0) {json.dumps(host_fit)}")
+    log(f"phase 4: one whole f32 cycle (5 inner steps), host clock, median of 3 (ms): "
+        f"{json.dumps(cycle_ms)}")
+    log(f"phase 4: fused vs host-loop point coefficients {apart:.3e} apart (bound "
+        f"{bound:.3e}); a second fused fit bitwise equal (point, poly): {same}; one f32 cycle "
+        f"replayed from the graph bitwise equal to the same cycle run eagerly: {cycle_same}")
+    if not (fused_fit["fused"] and fused_fit["replays"] > 0
+            and fused_fit["host_pulls_per_cycle"] == 1.0):
+        raise AssertionError(f"the albatite fit did not replay its cycles: {fused_fit}")
+    if host_fit["fused"] or not max(fused_fit["residual"], host_fit["residual"]) <= 1e-6:
+        raise AssertionError(f"fused {fused_fit['residual']}, host loop {host_fit['residual']}")
+    if not (apart <= bound and all(same) and cycle_same):
+        raise AssertionError(f"fused vs host loop {apart:.3e}, repeat {same}, cycle {cycle_same}")
+
+
 def phase_albatite(frt, nf, timing, dev):
     """The fit path. Returns the fit, the dataset's extents and span, and
     the H1/H2/H3 kernel-line entries (launches of H3 are filled in by the
@@ -740,14 +875,18 @@ def phase_albatite(frt, nf, timing, dev):
     )
     tracer = timing.enable_global_tracer()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     nf.reset_launches()
+    inner = []
     t0 = time.perf_counter()
     with LegCounter(api) as legs:
-        rbfi = frt.RBFInterpolator(pts, vals, settings, device=dev)
+        rbfi = frt.RBFInterpolator(pts, vals, settings, device=dev,
+                                   progress_callback=frt.Progress(inner.append))
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     timing.disable_global_tracer()
     fit_launches = dict(nf.LAUNCHES)
+    fused_fit = solver_path(tracer, fit_s, torch.cuda.max_memory_allocated(dev) / 1e9, inner)
     t0 = time.perf_counter()
     pred = rbfi.evaluate_at_source(add_nugget=True)
     eval_s = time.perf_counter() - t0
@@ -776,6 +915,7 @@ def phase_albatite(frt, nf, timing, dev):
             f"64^3 evaluate_with_gradients twice: values {np.max(np.abs(gv2 - gv)):.3e}, "
             f"gradients {np.max(np.abs(gg2 - gg)):.3e} apart, not bitwise equal")
     del gv2, gg2
+    fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit)
 
     done = [e for e in tracer.events if e["event"] == "solve_done"]
     solver_res = done[-1]["residual"]
@@ -1065,6 +1205,7 @@ def phase_config4(frt, nf, timing, dev, n=1_000_000):
     log(f"phase 7: target sets {json.dumps([strip(e) for e in events if e['event'] == 'fmm_targets'])}")
     log(f"phase 7: fit launches {json.dumps(launches)} (per leg {json.dumps(legs.calls)}); "
         f"fit peak device memory {fit_peak_gb:.3f} GB")
+    log(f"phase 7: solver path {json.dumps(solver_path(tracer, fit_s, fit_peak_gb))}")
     time_fit_legs(nf, rbfi.interpolant_settings.kernel_params(), legs)
     del legs
 
@@ -1262,6 +1403,7 @@ def phase_trend(frt, nf, timing, dev):
     # (a) the fit through the builder
     tracer = timing.enable_global_tracer()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     nf.reset_launches()
     t0 = time.perf_counter()
     rbfi = frt.RBFInterpolator.builder(pts, vals, settings, device=dev).global_trend(trend).build()
@@ -1282,6 +1424,8 @@ def phase_trend(frt, nf, timing, dev):
         f"{eval_s:.3f} s, max residual / max|vals| {rel:.3e} (bound 1e-4)")
     log(f"phase 9a: fit stages (s) {json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
     log(f"phase 9a: fit launches {json.dumps(fit_launches)}")
+    path = solver_path(tracer, fit_s, torch.cuda.max_memory_allocated(dev) / 1e9)
+    log(f"phase 9a: solver path {json.dumps(path)}")
     if not solver_res <= 1e-6:
         raise AssertionError(f"trend fit solver residual {solver_res:.3e}")
     if not (pred.shape == vals.shape and rel < 1e-4):
@@ -1440,7 +1584,9 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     log(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}; CUDA graph conditional nodes in this torch "
+        f"(CUDAGraph.begin_capture_to_if_node): "
+        f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
     nf.build()
     log(f"phase 1: kernels built in {nf.BUILD_INFO['seconds']:.2f} s "
         f"({nf.BUILD_INFO['path']})")

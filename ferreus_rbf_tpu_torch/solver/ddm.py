@@ -450,6 +450,28 @@ class DDMTree:
             out += solve_bucket(residual, part, n_out)
         return out
 
+    def coarse_device_arrays(self):
+        """The coarse solve's data on the tree's device, for the fused FGMRES
+        cycle (``solver/fused.py``): ``(arrays, k, solve_for_poly)`` with
+        ``arrays`` = {idx, chol (lower, f64), q_top, a_special, inv_special},
+        or None when the coarse system is not SPD (its factorisation fell
+        back to LDL), which keeps the host loop."""
+        dom = self.levels[-1].coarse_domain
+        if not dom.is_spd:
+            return None
+        k, nc = dom.num_special, dom.num_points
+        arrays = {
+            "idx": self.levels[-1].coarse_idx,
+            "chol": dom.cholesky_lower(),
+            "q_top": dom.q_matrix_top if dom.q_matrix_top is not None else np.zeros((0, nc)),
+            "a_special": (dom.a_special_points_rows if dom.a_special_points_rows is not None
+                          else np.zeros((k, nc))),
+            "inv_special": (scipy.linalg.lu_solve(dom._special_point_lu, np.eye(k))
+                            if dom._special_point_lu is not None else np.zeros((k, k))),
+        }
+        arrays = {key: torch.as_tensor(v, device=self.device) for key, v in arrays.items()}
+        return arrays, k, dom.solve_for_poly
+
     def solve_coarse(self, residual, add_poly: bool):
         """Direct coarse solve on the host; only the coarse rows move."""
         coarse = self.levels[-1]

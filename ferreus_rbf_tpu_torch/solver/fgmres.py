@@ -42,9 +42,8 @@ def givens_rotation(f: float, g: float):
         return f1 / abs(r), g / r, r
     u = min(max(max(f1, g1), safmin), safmax)
     fs, gs = f / u, g / u
-    mag = math.sqrt(fs * fs + gs * gs)
-    r = math.copysign(mag, f) * u
-    return abs(fs) / mag, gs / mag, r
+    rs = math.copysign(math.sqrt(fs * fs + gs * gs), f)
+    return abs(fs) / abs(rs), gs / rs, rs * u  # dlartg: s = gs / r, r signed as f
 
 
 def fgmres(

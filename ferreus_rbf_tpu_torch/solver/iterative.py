@@ -8,12 +8,17 @@ system is solved per RHS column with restarted FGMRES (20 x 5, mixed
 precision with f64 refinement by default) or the stationary DDM iteration,
 both right-preconditioned by the multilevel Schwarz hierarchy.
 
-The solver loop runs on the host; vectors, the FMM passes, the batched
-Schwarz leaf solves and the polynomial block stay on ``device``.
+FGMRES runs its restart cycles on the device (``solver/fused.py``, one
+host pull per cycle, each cycle a CUDA graph on the card) unless
+``FERREUS_RBF_TPU_FUSED`` is "0" or one of ``FusedSystem``'s gates turns
+the system away; then, and for the DDM iteration, the solver loop runs on
+the host. Either way vectors, the FMM passes, the batched Schwarz leaf
+solves and the polynomial block stay on ``device``.
 """
 
 from __future__ import annotations
 
+import os
 import types
 
 import numpy as np
@@ -24,6 +29,7 @@ from ..ops.fmm.api import FmmTree
 from ..ops.polynomials import evaluate_monomials
 from ..utils.timing import global_tracer, record_event, traced_stage
 from . import fgmres as solvers
+from . import fused as fused_mod
 from .ddm import DDMTree
 from .domain import Coefficients
 from .schwarz import schwarz_preconditioner
@@ -143,13 +149,28 @@ def iterative_fit(rbfi):
 
     point_coefficients = np.zeros((n, num_cols))
     poly_coefficients = np.zeros((m, num_cols)) if m else None
+
+    # Device restart cycles (one host pull per cycle) unless the variable
+    # turns them off or a gate keeps the host loop (the JAX package's rule)
+    fs = None
+    if params.solver_type == Solvers.FGMRES and os.environ.get(
+            "FERREUS_RBF_TPU_FUSED", "1") not in ("0", "false", "False"):
+        with traced_stage("fused_system_build"):
+            fs = fused_mod.FusedSystem(system)
+        record_event("fused_system", {"ok": fs.ok, "gate": fs.gate,
+                                      "factor_bytes": fs.factor_bytes})
+        if not fs.ok:
+            fs = None
+
     for col in range(num_cols):
         b = torch.as_tensor(rhs[:, col : col + 1], device=rbfi.device)
         with traced_stage("solve_column"):
-            sol = _solve_one_column(rbfi, system, b, settings, params).cpu().numpy()
+            sol = _solve_one_column(rbfi, system, fs, b, settings, params).cpu().numpy()
         point_coefficients[:, col] = sol[:n, 0]
         if m:
             poly_coefficients[:, col] = sol[n:, 0]
+    if fs is not None:
+        record_event("fused_solve", dict(fs.stats))
 
     # One-M-step preconditioner diagnostic, stashed on the interpolator and
     # not run inline, so the fit's wall-clock stays raw. One preconditioner
@@ -186,7 +207,13 @@ def iterative_fit(rbfi):
     return Coefficients(point_coefficients, poly_coefficients)
 
 
-def _solve_one_column(rbfi, system, b, settings, params):
+def _solve_one_column(rbfi, system, fs, b, settings, params):
+    if fs is not None:
+        kw = dict(max_outer_iterations=20, max_inner_iterations=5,
+                  tolerance=settings.fitting_accuracy, callback=rbfi.progress_callback)
+        if params.mixed_precision:
+            return fused_mod.refined_fgmres_fused(fs, b, **kw)
+        return fused_mod.fgmres_fused(fs, b, prec=fs.f64_prec, **kw)
     kw = dict(m=system.precon, tolerance=settings.fitting_accuracy,
               callback=rbfi.progress_callback)
     if params.solver_type == Solvers.FGMRES:

@@ -21,18 +21,22 @@ def schwarz_preconditioner(
     matvec_partial,
     interpolant_settings: InterpolantSettings,
     ortho_poly,
+    solve_coarse=None,
 ):
     """Apply the multilevel Schwarz preconditioner to residual ``rg``.
 
     ``matvec_partial(weights, level_key)`` computes the system operator
     restricted to one level's target rows (full-size output, zeros
     elsewhere). ``ortho_poly`` is the thin-Q polynomial basis (tensor) or
-    None without drift.
+    None without drift. ``solve_coarse(residual, add_poly)`` is the coarse
+    solve, by default the tree's host solve (the fused solver passes its
+    solve on the device).
     """
+    solve_coarse = solve_coarse or ddm_tree.solve_coarse
     sl = rg.new_zeros(rg.shape)
     coarse_idx = len(ddm_tree.levels) - 1
     if coarse_idx == 0:
-        return sl + ddm_tree.solve_coarse(rg, add_poly=True)
+        return sl + solve_coarse(rg, add_poly=True)
     for i in range(coarse_idx):
         # matvec(0) == 0: skip the first restricted matvec
         res = rg if i == 0 else rg - matvec_partial(sl, i)
@@ -42,5 +46,5 @@ def schwarz_preconditioner(
             s1[:n] -= ortho_poly @ (ortho_poly.T @ s1[:n])
         sl = sl + s1
         res = rg - matvec_partial(sl, "coarse")
-        sl = sl + ddm_tree.solve_coarse(res, add_poly=(i == coarse_idx - 1))
+        sl = sl + solve_coarse(res, add_poly=(i == coarse_idx - 1))
     return sl

@@ -1,4 +1,5 @@
-"""The port on the CUDA card: kernels H1-H4 and the device path.
+"""The port on the CUDA card: kernels H1-H4, the device path and the fused
+FGMRES (its cycle captured as a CUDA graph and replayed).
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX (the machine with the card has none), so run it there without the
@@ -397,3 +398,126 @@ def test_cells_kernel_with_tcnt_matches_plain(cuda, monkeypatch, name, budget):
                 assert _rel(g, w) < TOL[dtype]
                 assert float(g[dead].abs().max()) == 0.0
                 assert float(g[0].abs().max()) == 0.0  # the count-0 row
+
+
+# The fused FGMRES on the card (solver/fused.py): the system of
+# tests/test_torch_fused.py, 1,500 random points, ThinPlateSpline, two fine
+# Schwarz levels and an SPD coarse domain.
+
+def _fused_case():
+    rng = np.random.default_rng(21)
+    pts = rng.random((1500, 3))
+    vals = np.sin(4 * pts[:, 0]) * np.cos(3 * pts[:, 1]) + 0.5 * pts[:, 2]
+    settings = frt.InterpolantSettings(
+        kernel_type=frt.RBFKernelType.ThinPlateSpline,
+        fitting_accuracy=frt.FittingAccuracy(1e-6, frt.FittingAccuracyType.Relative))
+    params = frt.Params(ddm_params=frt.DDMParams(leaf_threshold=128, coarse_ratio=0.5,
+                                                 coarse_threshold=400),
+                        naive_solve_threshold=0)
+    return pts, vals, settings, params
+
+
+def _fused_fit(cuda, fused=True):
+    """A fit on the card with the tracer's events: the fused path, or the
+    host loop (FERREUS_RBF_TPU_FUSED=0)."""
+    import os
+
+    from ferreus_rbf_tpu_torch.utils import timing
+
+    tracer = timing.enable_global_tracer()
+    if not fused:
+        os.environ["FERREUS_RBF_TPU_FUSED"] = "0"
+    try:
+        fit = frt.RBFInterpolator(*_fused_case(), device=cuda)
+    finally:
+        os.environ.pop("FERREUS_RBF_TPU_FUSED", None)
+        timing.disable_global_tracer()
+    return fit, {e["event"]: e for e in tracer.events}
+
+
+def _fused_system(cuda):
+    from ferreus_rbf_tpu_torch.solver.fused import FusedSystem
+    from ferreus_rbf_tpu_torch.solver.iterative import DeviceSystem
+    from ferreus_rbf_tpu_torch.utils.common import get_cheb_cube_scaling_factors
+
+    rbfi = frt.RBFInterpolator(*_fused_case(), device=cuda, _skip_solve=True)
+    rbfi.translation_factor, rbfi.scale_factor = get_cheb_cube_scaling_factors(rbfi.points)
+    system = DeviceSystem(rbfi)
+    fs = FusedSystem(system)
+    assert fs.ok
+    rhs = np.zeros((system.n + system.m, 1))
+    rhs[: system.n, 0] = rbfi.point_values[:, 0]
+    return fs, torch.as_tensor(rhs, device=cuda)
+
+
+@pytest.mark.parametrize("tol", [1e-14, 1e-2])
+def test_fused_cycle_replay_is_bitwise_the_eager_cycle(cuda, tol):
+    """The first cycle of a key runs eagerly and is captured; a replay of
+    the graph and an eager cycle from the same (x, r) give the same bits.
+    tol 1e-2 stops the cycle early: the replay runs its last steps masked."""
+    fs, b = _fused_system(cuda)
+    beta = float(torch.linalg.norm(b))
+    args = ("f32", False, 5, b, torch.zeros_like(b), b, beta, tol)
+    first = fs.cycle(*args)
+    replay = fs.cycle(*args)
+    eager = fs.cycle(*args, eager=True)
+    assert fs.stats["graphs"] == 1 and fs.stats["replays"] == 1
+    for other in (first, eager):
+        assert torch.equal(replay[0], other[0]) and torch.equal(replay[1], other[1])
+        assert np.array_equal(replay[2], other[2])
+    assert fs.stats["masked_steps"] == 5 - int(replay[2][2])
+    assert (int(replay[2][2]) < 5) == (tol == 1e-2)
+
+
+def test_two_fused_fits_on_card_are_bitwise(cuda):
+    a, ev = _fused_fit(cuda)
+    b, _ = _fused_fit(cuda)
+    assert ev["fused_system"]["ok"] and ev["fused_solve"]["replays"] > 0
+    assert np.array_equal(a.coefficients.point_coefficients, b.coefficients.point_coefficients)
+    assert np.array_equal(a.coefficients.poly_coefficients, b.coefficients.poly_coefficients)
+
+
+def test_fused_fit_on_card_matches_host_loop(cuda):
+    """Both converge, honour the data within 1e-5 of max |values|, and
+    agree within 1e-2 * (max |c| + 1) (the JAX package's fused test)."""
+    vals = _fused_case()[1]
+    fused, ev = _fused_fit(cuda)
+    host, hev = _fused_fit(cuda, fused=False)
+    assert ev["fused_system"]["ok"] and "fused_system" not in hev
+    for fit, events in ((fused, ev), (host, hev)):
+        assert events["solve_done"]["converged"]
+        resid = np.max(np.abs(fit.evaluate_at_source(add_nugget=True) - vals))
+        assert resid < 1e-5 * np.max(np.abs(vals))
+    cf, ch = fused.coefficients.point_coefficients, host.coefficients.point_coefficients
+    assert np.max(np.abs(cf - ch)) < 1e-2 * (np.max(np.abs(ch)) + 1)
+
+
+def test_fused_fit_launches_match_the_profiler(cuda):
+    """A replay runs no Python, so its launches are counted from the
+    capture: ``LAUNCHES`` after a fused fit equals the work-item kernels
+    (one per wrapper call) that the profiler saw run, replays included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    nf.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, ev = _fused_fit(cuda)
+        torch.cuda.synchronize()
+    ran = sum(e.count for e in prof.key_averages() if "near_field_work_items_kernel" in e.key)
+    assert ev["fused_solve"]["replays"] > 0
+    assert sum(nf.LAUNCHES.values()) == ran > 0
+
+
+def test_sync_inside_the_captured_cycle_raises(cuda):
+    """The cycle is captured in the "global" error mode: a host sync inside
+    it raises instead of passing quietly (the eager first cycle runs)."""
+    fs, b = _fused_system(cuda)
+    precon = fs.precon
+
+    def synced(rg):
+        float(rg.abs().max())
+        return precon(rg)
+
+    fs.precon = synced
+    with pytest.raises(RuntimeError):
+        fs.cycle("f32", False, 5, b, torch.zeros_like(b), b, float(torch.linalg.norm(b)), 1e-14)
+    assert fs.stats["cycles"] == 1 and fs.stats["graphs"] == 0
