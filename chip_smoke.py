@@ -78,23 +78,38 @@ Phases (any failure raises and the script exits non-zero):
    the Laplacian over the albatite points, 2 RHS, ``evaluate`` and
    ``evaluate_with_gradients`` at 1,024 grid points against a dense f64
    sum, and ``evaluate_leaves`` after ``set_local_coefficients`` bit for bit
-   ``evaluate``.
+   ``evaluate``;
+10. the sharded path (run after phase 9, before phase 7, while this
+    process holds little device memory): ranks spawned over
+    ``torch.distributed``, two sharing ``cuda:0`` over gloo on a one-card
+    machine, ``min(4, cards)`` over NCCL on more, each of them under
+    ``parallel.use_mesh``: (a) config 2's matvec at f32 and f64, bit for bit
+    a one-rank matvec of the same tree and the same on every rank, timed
+    per rank against phase 3; (b) the albatite fit on the fused path and
+    on the host loop, converged and bit for bit phase 4's one-rank fits;
+    (c) the albatite tree with the gate forced, f32 and f64 bit for bit one
+    rank, H4 launched on every rank; with each rank's launches of H1, H2
+    and H4, its share of leaves, M2L slots, rows and Schwarz domains, its
+    factor bytes and its peak device memory. A rank that fails fails the
+    run.
 
 Repeat evaluations on the card are bitwise equal (the M2M adds its octants
 in a fixed order), and the script holds them so: phase 4 runs
 ``evaluate_device`` twice on one tree (f32 and f64) and
 ``evaluate_with_gradients`` twice on the 64^3 grid, phase 8 compares the
 gated and ungated trees and a tree against itself after a second upward
-and downward pass, and phase 9 a saved and loaded model, each bit for bit.
+and downward pass, phase 9 a saved and loaded model and phase 10 every
+sharded result against one rank, each bit for bit.
 
-Phases 4-9 each zero the kernels' launch counters just before they drive
-the port and read them just after. The line before the last is a JSON
+Phases 4-10 each zero the kernels' launch counters just before they drive
+the port and read them just after (phase 10 in each rank). The line before the last is a JSON
 object with one entry per kernel: its launches on its path (phase 4 for
 H1/H2, phase 6 for H3, phase 8's gated tree for H4), its error and time
 against the plain version (the albatite shapes for H1-H3, phase 8's gated
 M2P for H4), and its bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -670,7 +685,7 @@ def phase_config2(frt, nf, dev):
     idx = torch.as_tensor(np.sort(rng.choice(n, 1024, replace=False)), device=dev)
     pts_d = torch.as_tensor(pts, device=dev)
     oracle = dense_matvec(make_kernel(kp), pts_d[idx], pts_d, w)
-    vals = {}
+    vals, medians = {}, {}
     for prec in ("f32", "f64"):
         v = tree.evaluate_device(w, "src", precision=prec)
         torch.cuda.synchronize()
@@ -682,7 +697,7 @@ def phase_config2(frt, nf, dev):
             times.append(time.perf_counter() - t0)
         med = sorted(times)[2]
         err = rel_err(v[idx], oracle)
-        vals[prec] = v
+        vals[prec], medians[prec] = v, med * 1e3
         log(f"phase 3: config-2 matvec {prec}: median {med * 1e3:.3f} ms, "
             f"{n / med:.6g} pts/s, error vs dense f64 oracle {err:.3e} "
             f"(bound {CONFIG2_BOUND:.0e})")
@@ -696,6 +711,7 @@ def phase_config2(frt, nf, dev):
     for name, dtype in (("near_field_f32", torch.float32), ("near_field_f64", torch.float64)):
         r = time_near_field(nf, tree, "src", dtype, kp, nrhs, g)
         log_near_field(f"phase 3: config-2 nrhs {nrhs}", name, r)
+    return medians
 
 
 def dense_gradients(rbfi, targets, dev, chunk=256):
@@ -855,24 +871,17 @@ def fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit):
         raise AssertionError(f"fused {fused_fit['residual']}, host loop {host_fit['residual']}")
     if not (apart <= bound and all(same) and cycle_same):
         raise AssertionError(f"fused vs host loop {apart:.3e}, repeat {same}, cycle {cycle_same}")
+    return host
 
 
 def phase_albatite(frt, nf, timing, dev):
-    """The fit path. Returns the fit, the dataset's extents and span, and
-    the H1/H2/H3 kernel-line entries (launches of H3 are filled in by the
-    isosurface phase)."""
+    """The fit path. Returns the fit, the dataset's extents and span, the
+    H1/H2/H3 kernel-line entries (launches of H3 are filled in by the
+    isosurface phase) and the host-loop fit."""
     from ferreus_rbf_tpu_torch.ops.fmm import api
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
 
-    pts, vals = frt.csv_to_point_arrays(
-        os.path.join(HERE, "datasets", "albatite_SD_points.csv"), has_headers=True)
-    vals = vals.reshape(-1)
-    span = float(np.max(pts.max(axis=0) - pts.min(axis=0)))
-    settings = frt.InterpolantSettings(
-        kernel_type=frt.RBFKernelType.Spheroidal,
-        spheroidal_order=frt.SpheroidalOrder.Five,
-        base_range=span / 4.0, total_sill=span / 4.0,
-    )
+    pts, vals, span, settings = albatite_data(frt)
     tracer = timing.enable_global_tracer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -915,7 +924,7 @@ def phase_albatite(frt, nf, timing, dev):
             f"64^3 evaluate_with_gradients twice: values {np.max(np.abs(gv2 - gv)):.3e}, "
             f"gradients {np.max(np.abs(gg2 - gg)):.3e} apart, not bitwise equal")
     del gv2, gg2
-    fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit)
+    host = fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit)
 
     done = [e for e in tracer.events if e["event"] == "solve_done"]
     solver_res = done[-1]["residual"]
@@ -983,7 +992,7 @@ def phase_albatite(frt, nf, timing, dev):
                             settings.kernel_params(), 1, g, grad=grad)
         log_near_field("phase 4: albatite", name, r)
         entries[name] = kernel_entry(name, launches[name], r["p2p"])
-    return rbfi, pts, span, entries
+    return rbfi, pts, span, entries, host
 
 
 def phase_config2_gradients(nf, dev):
@@ -1531,6 +1540,281 @@ def phase_trend(frt, nf, timing, dev):
         raise AssertionError(f"H2 or H3 never launched in bbfmm: {bb_launches}")
 
 
+SHARD_DIR = os.path.join(HERE, "build", "phase10")
+# a rank that waits this long on a collective fails; the phase's own limit
+SHARD_TIMEOUT_S = 300
+
+
+def same_on_every_rank(t, group):
+    """True on every rank when ``t`` has the same values on every rank
+    (elementwise max and min over the ranks agree; -0.0 equals 0.0)."""
+    import torch.distributed as dist
+
+    hi, lo = t.detach().cpu().clone(), t.detach().cpu().clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    return bool(torch.equal(hi, lo))
+
+
+def coefficient_array(c, part):
+    """A fit's point or poly coefficients as an array (empty without a
+    drift)."""
+    a = getattr(c, f"{part}_coefficients")
+    return np.zeros(0) if a is None else np.asarray(a)
+
+
+def albatite_data(frt):
+    """Phase 4's data and settings: (points, values, span, settings)."""
+    pts, vals = frt.csv_to_point_arrays(
+        os.path.join(HERE, "datasets", "albatite_SD_points.csv"), has_headers=True)
+    vals = vals.reshape(-1)
+    span = float(np.max(pts.max(axis=0) - pts.min(axis=0)))
+    settings = frt.InterpolantSettings(
+        kernel_type=frt.RBFKernelType.Spheroidal,
+        spheroidal_order=frt.SpheroidalOrder.Five,
+        base_range=span / 4.0, total_sill=span / 4.0,
+    )
+    return pts, vals, span, settings
+
+
+def shard_rank(rank, world, backend, refs_path):
+    """One rank of phase 10 (its steps are in :func:`phase_sharded`); writes
+    ``rank<r>.json`` beside ``refs_path``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import ferreus_rbf_tpu_torch as frt
+    from ferreus_rbf_tpu_torch import parallel
+    from ferreus_rbf_tpu_torch.ops.fmm import near_field as nf
+    from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
+    from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType
+    from ferreus_rbf_tpu_torch.solver import ddm as ddm_mod
+    from ferreus_rbf_tpu_torch.utils import timing
+
+    dist.init_process_group(backend, init_method=f"file://{SHARD_DIR}/init", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    mesh = parallel.make_mesh(world, device_type="cuda", backend=backend)
+    dev = mesh.device
+    host_group = dist.new_group(backend="gloo")  # the checks' own collectives
+    rec = {"rank": rank, "device": str(dev), "card": torch.cuda.get_device_name(dev)}
+
+    def matvecs(one, sharded, weights, key, tag):
+        """f32 and f64: bit for bit one rank, the same on every rank; the
+        kernels' launches of the sharded pair."""
+        nf.reset_launches()
+        got = {prec: sharded.evaluate_device(weights, key, prec) for prec in ("f32", "f64")}
+        torch.cuda.synchronize(dev)
+        rec[f"{tag}_launches"] = {k: v for k, v in nf.LAUNCHES.items() if v}
+        for prec, v in got.items():
+            want = one.evaluate_device(weights, key, prec)
+            rec[f"{tag}_{prec}"] = {"one_rank": bool(torch.equal(v, want)),
+                                    "every_rank": same_on_every_rank(v, host_group),
+                                    "finite": bool(torch.isfinite(v).all())}
+        rec[f"{tag}_shares"] = sharded.shares(key)
+
+    # (a) config 2's matvec (phase 3's tree)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n, nrhs, p = 100_000, 8, 5
+    rng = np.random.default_rng(42)
+    pts = rng.random((n, 3))
+    w = torch.as_tensor(rng.standard_normal((n, nrhs)), device=dev)
+    params = frt.FmmParams(interpolation_order=p, max_points_per_cell=256,
+                           compression_type=frt.FmmCompressionType.ACA, epsilon=10.0**-p)
+    kp = KernelParams(KernelType.LinearRbf)
+    trees = []
+    for mesh_or_none in (None, mesh):
+        with parallel.use_mesh(mesh_or_none) if mesh_or_none else contextlib.nullcontext():
+            tree = FmmTree(pts, p, kp, adaptive_tree=False, sparse=True, params=params,
+                           device=dev)
+        tree.prepare_targets(pts, "src")
+        trees.append(tree)
+    matvecs(*trees, w, "src", "config2")
+    rec["config2_ms"] = {prec: synced_median(lambda: trees[1].evaluate_device(w, "src", prec))
+                         * 1e3 for prec in ("f32", "f64")}
+    rec["config2_peak_gb"] = round(torch.cuda.max_memory_allocated(dev) / 1e9, 4)
+    del trees, w
+
+    # (b) the albatite fit under the mesh, fused and on the host loop
+    pts, vals, _, settings = albatite_data(frt)
+    refs = np.load(refs_path)
+    kept = []
+    init = ddm_mod.DDMTree.__init__
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        kept.append(self)
+
+    fits = {}
+    for path in ("fused", "host"):
+        if path == "host":
+            os.environ[FUSED_ENV] = "0"
+        tracer = timing.enable_global_tracer()
+        ddm_mod.DDMTree.__init__ = keep
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        nf.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with parallel.use_mesh(mesh):
+                fit = frt.RBFInterpolator(pts, vals, settings)
+            torch.cuda.synchronize(dev)
+        finally:
+            os.environ.pop(FUSED_ENV, None)
+            ddm_mod.DDMTree.__init__ = init
+            timing.disable_global_tracer()
+        fit_s = time.perf_counter() - t0
+        tree = kept.pop()
+        c = fit.coefficients
+        ev = {e["event"]: e for e in tracer.events}  # rank 0 only
+        fits[path] = {
+            "fit_s": round(fit_s, 4),
+            "solve_column_s": round(tracer.totals.get("solve_column", 0.0), 4),
+            "stages_s": {k: round(v, 3) for k, v in tracer.totals.items()},
+            "one_rank": [bool(np.array_equal(coefficient_array(c, part), refs[f"{path}_{part}"]))
+                         for part in ("point", "poly")],
+            "residual": ev["solve_done"]["residual"] if "solve_done" in ev else None,
+            "fused_solve": ev.get("fused_solve"),
+            "fused_system": ev.get("fused_system"),
+            "factor_mb_rank": round(tree.factor_bytes_rank / 2**20, 3),
+            "factor_mb_all": round(tree.factor_bytes / 2**20, 3),
+            "domains": [tree.domains_rank, tree.domains],
+            "peak_gb": round(torch.cuda.max_memory_allocated(dev) / 1e9, 4),
+            "launches": {k: v for k, v in nf.LAUNCHES.items() if v},
+        }
+        del tree
+    rec["albatite"] = fits
+
+    # (c) the gate forced on the albatite tree (M2P on H4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gate = os.environ.get(GATE_ENV)
+    os.environ[GATE_ENV] = "0"
+    try:
+        trees = []
+        for mesh_or_none in (None, mesh):
+            with parallel.use_mesh(mesh_or_none) if mesh_or_none else contextlib.nullcontext():
+                tree = FmmTree(fit.points, fit.params.fmm_params.interpolation_order,
+                               settings.kernel_params(), adaptive_tree=True, sparse=True,
+                               params=fit.params.fmm_params, device=dev)
+            tree.prepare_targets(fit.points, "__all__")
+            trees.append(tree)
+    finally:
+        if gate is None:
+            os.environ.pop(GATE_ENV)
+        else:
+            os.environ[GATE_ENV] = gate
+    rec["gated"] = [t._m2p_tiles_gated for t in trees]
+    wd = torch.as_tensor(fit.coefficients.point_coefficients, device=dev)
+    matvecs(*trees, wd, "__all__", "albatite_gated")
+    rec["peak_gb"] = round(torch.cuda.max_memory_allocated(dev) / 1e9, 4)
+    with open(os.path.join(SHARD_DIR, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    dist.barrier(group=host_group)
+    dist.destroy_process_group()
+
+
+def run_ranks(fn, world, args, limit_s):
+    """Start ``world`` ranks of ``fn(rank, world, *args)`` with the spawn
+    method and wait for them; a rank that fails or runs past ``limit_s``
+    fails the run, and no rank outlives it."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.start_processes(fn, args=(world, *args), nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + limit_s
+    try:
+        while not ctx.join(timeout=1):  # raises when a rank fails
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the ranks ran past {limit_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def phase_sharded(dev, refs, config2_ms=None):
+    """Phase 10, the sharded path on the card: ``min(4, cards)`` ranks over
+    NCCL with two or more cards, else two ranks sharing ``cuda:0`` over
+    gloo. Under ``parallel.use_mesh`` they drive (a) config 2's matvec
+    (phase 3's tree) at f32 and f64, bit for bit a one-rank matvec of the
+    same tree and the same on every rank, timed per rank (median of 5);
+    (b) the albatite fit on the fused path and with
+    ``FERREUS_RBF_TPU_FUSED=0``, each converged with coefficients bit for
+    bit ``refs`` (the one-rank fits on the same paths: phase 4's); (c) the
+    albatite tree with the gate forced: f32 and f64 bit for bit one rank,
+    H4 launched on every rank. Logs each rank's launches of H1, H2 and H4,
+    its share of leaves, M2L slots, rows and Schwarz domains, its factor
+    bytes and its peak device memory."""
+    cards = torch.cuda.device_count()
+    world, backend = (min(4, cards), "nccl") if cards >= 2 else (2, "gloo")
+    t0 = time.perf_counter()
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    for name in os.listdir(SHARD_DIR):
+        os.remove(os.path.join(SHARD_DIR, name))
+    refs_path = os.path.join(SHARD_DIR, "refs.npz")
+    np.savez(refs_path, **{f"{k}_{part}": coefficient_array(c, part)
+                           for k, c in refs.items() for part in ("point", "poly")})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 10: {world} ranks over {backend} on {cards} card(s) "
+        f"({'one card per rank' if backend == 'nccl' else 'every rank on cuda:0'})")
+    run_ranks(shard_rank, world, (backend, refs_path), 2 * SHARD_TIMEOUT_S)
+    recs = []
+    for r in range(world):
+        with open(os.path.join(SHARD_DIR, f"rank{r}.json")) as fh:
+            recs.append(json.load(fh))
+    for rec in recs:
+        rank = rec["rank"]
+        log(f"phase 10 rank {rank} ({rec['device']}, {rec['card']}): config 2 f32 "
+            f"{json.dumps(rec['config2_f32'])}, f64 {json.dumps(rec['config2_f64'])}; median "
+            f"matvec (ms) {json.dumps({k: round(v, 3) for k, v in rec['config2_ms'].items()})}; "
+            f"launches {json.dumps(rec['config2_launches'])}; shares (owned, total) "
+            f"{json.dumps(rec['config2_shares'])}; peak device memory "
+            f"{rec['config2_peak_gb']} GB")
+        for path, fit in rec["albatite"].items():
+            log(f"phase 10 rank {rank}: albatite fit, {path} path {json.dumps(fit)}")
+        log(f"phase 10 rank {rank}: albatite tree gated {rec['gated']}: f32 "
+            f"{json.dumps(rec['albatite_gated_f32'])}, f64 "
+            f"{json.dumps(rec['albatite_gated_f64'])}; launches "
+            f"{json.dumps(rec['albatite_gated_launches'])}; shares "
+            f"{json.dumps(rec['albatite_gated_shares'])}; peak device memory "
+            f"{rec['peak_gb']} GB")
+    if config2_ms is not None:
+        worst = {prec: max(rec["config2_ms"][prec] for rec in recs) for prec in ("f32", "f64")}
+        log(f"phase 10: config-2 sharded matvec, slowest rank's median (ms) "
+            f"{json.dumps({k: round(v, 3) for k, v in worst.items()})} against one rank in "
+            f"phase 3 {json.dumps({k: round(v, 3) for k, v in config2_ms.items()})}"
+            + ("; ranks that share one card cannot be faster than one rank, and gloo moves "
+               "each pass's shares through the host" if backend == "gloo" else ""))
+    checks = [rec[f"{tag}_{prec}"][k] for rec in recs
+              for tag in ("config2", "albatite_gated") for prec in ("f32", "f64")
+              for k in ("one_rank", "every_rank", "finite")]
+    if not all(checks):
+        raise AssertionError("a sharded matvec is not bit for bit one rank's on every rank")
+    for rec in recs:
+        if not (rec["gated"] == [True, True]
+                and rec["albatite_gated_launches"].get("near_field_cells_f32", 0) > 0
+                and rec["albatite_gated_launches"].get("near_field_cells_f64", 0) > 0):
+            raise AssertionError(f"rank {rec['rank']}: H4 did not launch on the gated tree")
+        for path, fit in rec["albatite"].items():
+            if not all(fit["one_rank"]):
+                raise AssertionError(f"rank {rec['rank']}: the sharded {path} fit is not bit "
+                                     f"for bit the one-rank fit")
+    lead = recs[0]["albatite"]
+    if not all(lead[path]["residual"] is not None and lead[path]["residual"] <= 1e-6
+               for path in ("fused", "host")):
+        raise AssertionError(f"a sharded albatite fit did not converge: {lead}")
+    if lead["fused"]["fused_system"] is None or not lead["fused"]["fused_system"]["ok"]:
+        raise AssertionError("the sharded fused fit did not take the fused path")
+    for part in ("leaves", "m2l_slots", "rows"):
+        if sum(rec["config2_shares"][part][0] for rec in recs) != recs[0]["config2_shares"][part][1]:
+            raise AssertionError(f"config-2 {part}: the ranks' shares do not cover the pass")
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 # the mangled name of near_field_work_items_kernel<KT, T, NR, GRAD, CELLS>
 _ITEM_KERNEL = r"near_field_work_items_kernelILi(\d+)E([fd])Li(\d+)ELb([01])ELb([01])E"
 _ITEM_LABELS = {("0", "0"): "H1/H2", ("1", "0"): "H3 grad", ("0", "1"): "H4 cells",
@@ -1594,15 +1878,17 @@ def main():
 
     phase_kernels(nf, kt_mod, dev)
     phase_kernels_cells(nf, kt_mod, dev)
-    phase_config2(frt, nf, dev)
-    rbfi, pts, span, entries = phase_albatite(frt, nf, timing, dev)
+    config2_ms = phase_config2(frt, nf, dev)
+    rbfi, pts, span, entries, host = phase_albatite(frt, nf, timing, dev)
     phase_config2_gradients(nf, dev)
     iso_launches = phase_isosurface(frt, nf, timing, rbfi, pts, span)
     entries["near_field_grad_f64"]["launches"] = iso_launches["near_field_grad_f64"]
     phase_trend(frt, nf, timing, dev)
+    phase_sharded(dev, {"fused": rbfi.coefficients, "host": host.coefficients}, config2_ms)
+    del rbfi, host
     rbfi4 = phase_config4(frt, nf, timing, dev)
     entries.update(phase_gate(nf, dev, rbfi4))
-    log(f"all nine phases in {time.perf_counter() - t_start:.1f} s (kernel build "
+    log(f"all ten phases in {time.perf_counter() - t_start:.1f} s (kernel build "
         f"{nf.BUILD_INFO['seconds']:.2f} s)")
 
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

@@ -40,9 +40,11 @@ from ..interpolant_config import InterpolantSettings
 from ..ops import kernels as kernels_mod
 from ..ops import polynomials
 from ..ops.fmm.api import FmmTree, resolve_device
+from ..parallel.sharding import active_mesh
 from ..progress import DuplicatesRemoved, Message, Progress
 from ..solver.domain import Coefficients, Domain
 from ..utils import common
+from ..utils.timing import muted_events
 from .global_trend import GlobalTrend, GlobalTrendTransform
 
 JSON_FORMAT_NAME = "ferreus_rbf.json"
@@ -101,7 +103,9 @@ class RBFInterpolator:
 
     ``device`` names the torch device the iterative fit and the FMM
     evaluations run on; by default the CUDA card (without one, pass
-    ``device="cpu"``).
+    ``device="cpu"``). Built under ``parallel.use_mesh`` the fit is sharded
+    over the mesh's ranks, and only rank 0 emits progress messages and
+    tracer events.
     """
 
     def __init__(
@@ -116,6 +120,10 @@ class RBFInterpolator:
         _skip_solve: bool = False,
     ):
         device = resolve_device(device)
+        mesh = active_mesh()
+        quiet = mesh is not None and mesh.rank != 0  # one stream: rank 0's
+        if quiet:
+            progress_callback = None
         solver_start = time.perf_counter()
         points = np.asarray(points, np.float64)
         values = np.asarray(values, np.float64)
@@ -155,7 +163,8 @@ class RBFInterpolator:
         self._evaluator = None
 
         if not _skip_solve:
-            self._setup_and_solve()
+            with muted_events(quiet):
+                self._setup_and_solve()
             duration = time.perf_counter() - solver_start
             progress_mod.emit(
                 progress_callback,

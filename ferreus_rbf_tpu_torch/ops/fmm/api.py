@@ -40,6 +40,14 @@ any target set without a downward pass.
 
 The tree's ``device`` defaults to the CUDA card; pass ``device="cpu"`` to
 run on the CPU (the kernels' plain versions).
+
+A tree built under ``parallel.use_mesh`` keeps the mesh, and its
+``evaluate_device`` shares the P2M (blocks of leaves), the M2L (blocks of
+target slots) and the leaf pass (blocks of target rows: L2P, P2P, M2P)
+out over the ranks, each joined by one all-reduce; the M2M, P2L and L2L
+and every other entry point stay replicated, as in the JAX package. Every
+pass, sharded or not, walks the same pieces (``parallel.pieces``), so a
+sharded matvec gives one rank's bits.
 """
 
 from __future__ import annotations
@@ -50,10 +58,12 @@ import numpy as np
 import torch
 
 from ...config import FmmCompressionType, FmmParams
+from ...parallel import sharding
 from ...utils.timing import record_event, traced_stage
 from ..kernels import Kernel, KernelParams, make_kernel
 from . import cheb, m2l, tree as tree_mod
-from .near_field import near_field, near_field_cells, near_field_cells_grad, near_field_grad
+from .near_field import (build, near_field, near_field_cells, near_field_cells_grad,
+                         near_field_grad)
 from .tree import Octree, PointOutsideTreeError, calculate_tree_center_and_radius
 
 __all__ = ["FmmTree", "KernelDoesNotSupportGradientsError", "PointOutsideTreeError",
@@ -80,7 +90,17 @@ class KernelDoesNotSupportGradientsError(ValueError):
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else the
     CUDA card. Without a card and with no device named this raises; it
-    never moves to the CPU silently."""
+    never moves to the CPU silently. Under an active mesh it is the mesh's
+    device for this rank, and a device named that is not it raises
+    ``ValueError``."""
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        if device is None:
+            return mesh.device
+        dev = torch.device(device)
+        if dev.type != mesh.device.type or dev.index not in (None, mesh.device.index):
+            raise ValueError(f"device {dev} is not this rank's mesh device {mesh.device}")
+        return mesh.device
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
@@ -122,6 +142,9 @@ class FmmTree:
             raise ValueError(f"Unsupported source point shape {pts.shape}")
         self._points = pts
         self.device = resolve_device(device)
+        self.mesh = sharding.active_mesh()
+        if sharding.sharded(self.mesh) and self.device.type == "cuda":
+            sharding.rank0_first(build, self.mesh)  # one nvcc, loaded by the other ranks
         self.p = int(interpolation_order)
         self.d = pts.shape[1]
         self.nnodes = self.p**self.d
@@ -339,6 +362,9 @@ class FmmTree:
             "m2l_levels": [(self._tensor(st, long), self._tensor(sc, long),
                             self._tensor(lc, long))
                            for _u, _vt, st, sc, lc in self.m2l_levels],
+            # every level's target cells end to end (each cell on one level)
+            "m2l_cells": self._tensor(np.concatenate(
+                [lc for *_, lc in self.m2l_levels] or [np.zeros(0, np.int64)]), long),
             "p2l_cells": self._tensor(self.p2l_cells, long),
             "p2l_nbr": self._tensor(self.p2l_tab.T),
             "p2l_cnt": self._tensor(self.p2l_cnt),
@@ -553,26 +579,32 @@ class FmmTree:
         w = weights.to(dtype)[self._dev["src_orig"]] * self._dev["src_mask"][..., None]
         return w.transpose(1, 2).contiguous()
 
-    def _upward(self, wt, fs):
-        """P2M + M2M -> multipole expansions (ncells, p^d, nrhs)."""
+    def _upward(self, wt, fs, mesh=None):
+        """P2M + M2M -> multipole expansions (ncells, p^d, nrhs); under a
+        sharded ``mesh`` each rank anterpolates its pieces of leaves and one
+        all-reduce joins them (the M2M is replicated)."""
         ncells = self.tree.num_cells
         nr = wt.shape[1]
-        mult = wt.new_zeros((ncells + 1, self.nnodes, nr))  # row ncells = sink
         leaves = self._dev["leaf_cells"]
-        if "p2m_w" in fs:
-            mult[leaves] = torch.bmm(wt[: self.nsl], fs["p2m_w"]).transpose(1, 2)
-        else:
-            # weights made in f64 and rounded to the pass's dtype, as the
-            # resident table's f32 copy is: both paths give the same sums
-            f64 = self._floats64
-            step = self._chunk(self.smax * self.nnodes)
-            for l0 in range(0, self.nsl, step):
-                sl = slice(l0, min(l0 + step, self.nsl))
-                w = cheb.anterpolation_weights_torch(
+        resident = "p2m_w" in fs
+        # weights per chunk are made in f64 and rounded to the pass's dtype,
+        # as the resident table's f32 copy is: both paths give the same sums
+        step = None if resident else self._chunk(self.smax * self.nnodes)
+        p2m = sharding.share_buffer(wt, (self.nsl, nr, self.nnodes), mesh)
+        for _, l0, l1 in sharding.pieces([self.nsl], mesh, [step]):
+            sl = slice(l0, l1)
+            if resident:
+                w = fs["p2m_w"][sl]
+            else:
+                f64 = self._floats64
+                w = (cheb.anterpolation_weights_torch(
                     f64["src_tiles"][sl].transpose(1, 2), f64["cell_centers"][leaves[sl]],
                     f64["cell_lengths"][leaves[sl]], f64["nodes_t"], self.d,
-                ) * self._dev["src_mask"][sl, :, None]
-                mult[leaves[sl]] = torch.bmm(wt[sl], w.to(wt.dtype)).transpose(1, 2)
+                ) * self._dev["src_mask"][sl, :, None]).to(wt.dtype)
+            torch.bmm(wt[sl], w, out=p2m[sl])
+        sharding.all_reduce_sum(p2m, mesh)
+        mult = wt.new_zeros((ncells + 1, self.nnodes, nr))  # row ncells = sink
+        mult[leaves] = p2m.transpose(1, 2)
         # A parent takes up to 2^d children, one per octant; within one
         # octant row the parents are unique. One index_add_ per octant, in
         # octant order, adds each parent's children in a fixed order, so
@@ -584,22 +616,32 @@ class FmmTree:
                 mult.index_add_(0, pa[o], contrib[o])
         return mult[:ncells]
 
-    def _downward(self, mult, wt, fs):
-        """M2L + P2L, then L2L -> local expansions (ncells, p^d, nrhs)."""
+    def _downward(self, mult, wt, fs, mesh=None):
+        """M2L + P2L, then L2L -> local expansions (ncells, p^d, nrhs);
+        under a sharded ``mesh`` each rank contracts its pieces of the
+        levels' target slots and one all-reduce joins them (P2L and L2L are
+        replicated)."""
         ncells = self.tree.num_cells
         nn = self.nnodes
         nr = mult.shape[2]
         budget = (1 << 24) * max(int(self.params.eval_chunk_size), 1) // 1024
-        local = mult.new_zeros((ncells + 1, nn, nr))  # row ncells = sink
+        levels = self._dev["m2l_levels"]
+        sizes = [src_tab.shape[1] for src_tab, _, _ in levels]
+        steps = [max(1, budget // (src_tab.shape[0] * nn * nr)) for src_tab, _, _ in levels]
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        m2l = sharding.share_buffer(mult, (int(offsets[-1]), nn, nr), mesh)  # slots end to end
         mult_pad = torch.cat([mult, mult.new_zeros((1, nn, nr))])
-        for (u, vt), (src_tab, src_cells, level_cells) in zip(fs["m2l"], self._dev["m2l_levels"]):
-            mult_src = mult_pad[src_cells]  # the level's sources once, + zero row
-            g, c_all = src_tab.shape
-            step = max(1, budget // (g * nn * nr))
-            for c0 in range(0, c_all, step):
-                x = mult_src[src_tab[:, c0 : c0 + step]]  # (g, c, p^d, r)
-                z = x if vt is None else torch.einsum("gkq,gcqr->gckr", vt, x)
-                local[level_cells[c0 : c0 + step]] += torch.einsum("gpk,gckr->cpr", u, z)
+        src_level = None
+        for li, c0, c1 in sharding.pieces(sizes, mesh, steps):
+            (u, vt), (src_tab, src_cells, _) = fs["m2l"][li], levels[li]
+            if li != src_level:  # the level's sources once, + zero row
+                src_level, mult_src = li, mult_pad[src_cells]
+            x = mult_src[src_tab[:, c0:c1]]  # (g, c, p^d, r)
+            z = x if vt is None else torch.einsum("gkq,gcqr->gckr", vt, x)
+            m2l[offsets[li] + c0 : offsets[li] + c1] = torch.einsum("gpk,gckr->cpr", u, z)
+        sharding.all_reduce_sum(m2l, mesh)
+        local = mult.new_zeros((ncells + 1, nn, nr))  # row ncells = sink
+        local[self._dev["m2l_cells"]] = m2l
 
         if self._dev["p2l_cells"].numel():
             local[self._dev["p2l_cells"]] += near_field(
@@ -613,49 +655,85 @@ class FmmTree:
             local.index_add_(0, ch.reshape(-1), contrib.reshape(-1, nn, nr))
         return local[:ncells]
 
-    def _l2p(self, binned, fs, local, with_grads=False):
+    def _l2p(self, binned, fs, local, with_grads=False, mesh=None):
         """L2P at a binned target set: values (rows, T, r) and, with
-        ``with_grads``, gradients (rows, T, d, r), in the dtype of ``fs``."""
+        ``with_grads``, gradients (rows, T, d, r), in the dtype of ``fs``;
+        under a sharded ``mesh`` only this rank's pieces of rows are filled,
+        the other rows are 0."""
         bs = self._binned_floats(binned, fs["nodes_t"].dtype)
-        loc = local[binned["tcells"]]  # (rows, p^d, r)
         rows, t, d = bs["tpts"].shape
-        nr = loc.shape[2]
-        if binned["l2p_resident"]:
-            vals = torch.bmm(bs["l2p_w"], loc)
-            if not with_grads:
-                return vals
-            # einsum("ltdp,lpr->ltdr") as one bmm over (T*d) weight rows
-            return vals, torch.bmm(binned["l2p_dw"].flatten(1, 2), loc).view(rows, t, d, nr)
-        # weights made in f64 per row chunk and rounded to the pass's dtype
-        vals = loc.new_empty((rows, t, nr))
-        grads = loc.new_empty((rows, t, d, nr)) if with_grads else None
-        step = self._chunk(t * self.nnodes * (1 + (d if with_grads else 0)))
-        for r0 in range(0, rows, step):
-            sl = slice(r0, r0 + step)
-            w = self._l2p_weights(binned, with_grads, sl)
+        nr = local.shape[2]
+        vals = sharding.share_buffer(local, (rows, t, nr), mesh)
+        grads = sharding.share_buffer(local, (rows, t, d, nr), mesh) if with_grads else None
+        # per-chunk weights are made in f64 and rounded to the pass's dtype
+        step = None if binned["l2p_resident"] else self._chunk(
+            t * self.nnodes * (1 + (d if with_grads else 0)))
+        for _, r0, r1 in sharding.pieces([rows], mesh, [step]):
+            sl = slice(r0, r1)
+            loc = local[binned["tcells"][sl]]  # (c, p^d, r)
+            if binned["l2p_resident"]:
+                w = bs["l2p_w"][sl]
+                dw = binned["l2p_dw"][sl] if with_grads else None
+            else:
+                w = self._l2p_weights(binned, with_grads, sl)
+                w, dw = w if with_grads else (w, None)
+                w = w.to(loc.dtype)
+            torch.bmm(w, loc, out=vals[sl])
             if with_grads:
-                w, dw = w
-                grads[sl] = torch.bmm(dw.flatten(1, 2), loc[sl]).view(-1, t, d, nr)
-            vals[sl] = torch.bmm(w.to(loc.dtype), loc[sl])
+                # einsum("ltdp,lpr->ltdr") as one bmm over (T*d) weight rows
+                torch.bmm(dw.flatten(1, 2), loc, out=grads[sl].view(-1, t * d, nr))
         return (vals, grads) if with_grads else vals
 
-    def _leaf(self, binned, dtype, fs, local, mult, wt):
-        """L2P + near field (P2P, M2P) at a binned target set -> (n, nrhs)."""
+    def _rank_rows(self, binned, mesh):
+        """This rank's contiguous rows of a binned target set and their
+        near-field tables: (lo, hi, nbr, tcnt, wtab, wcnt). Under a sharded
+        ``mesh`` the slices are made once per target set and kept, so the
+        work lists kept on them (``nbr._work_items``) are built once."""
+        if not sharding.sharded(mesh):
+            return (0, binned["tcnt"].shape[0], binned["nbr"], binned["tcnt"], binned["wtab"],
+                    binned["wcnt"])
+        if "rank_rows" not in binned:
+            lo, hi = sharding.rank_range(binned["tcnt"].shape[0], mesh)
+            wtab = binned["wtab"]
+            binned["rank_rows"] = (
+                lo, hi, binned["nbr"][:, lo:hi].contiguous(), binned["tcnt"][lo:hi],
+                None if wtab is None else wtab[:, lo:hi].contiguous(),
+                None if wtab is None else binned["wcnt"][lo:hi])
+        return binned["rank_rows"]
+
+    def _leaf(self, binned, dtype, fs, local, mult, wt, mesh=None):
+        """L2P + near field (P2P, M2P) at a binned target set -> (n, nrhs);
+        under a sharded ``mesh`` each rank runs its rows and one all-reduce
+        joins them before the un-bucketing."""
         bs = self._binned_floats(binned, dtype)
         nr = local.shape[2]
-        vals = self._l2p(binned, fs, local)  # (rows, T, r)
-        vals += near_field(bs["tpts"], fs["src_tiles"], wt, binned["nbr"],
-                           kparams=self.kernel_params, tcnt=binned["tcnt"],
-                           scnt=self._dev["src_scnt"])
-        if binned["wtab"] is not None and self._m2p_tiles_gated:
-            vals += near_field_cells(bs["tpts"], binned["wtab"], binned["wcnt"],
-                                     *self._cell_geometry(), mult, kparams=self.kernel_params,
-                                     tcnt=binned["tcnt"])
-        elif binned["wtab"] is not None:
-            vals += near_field(bs["tpts"], fs["node_tiles"], self._m2p_tiles(mult),
-                               binned["wtab"], binned["wcnt"], kparams=self.kernel_params,
-                               tcnt=binned["tcnt"])
+        vals = self._l2p(binned, fs, local, mesh=mesh)  # (rows, T, r)
+        lo, hi, nbr, tcnt, wtab, wcnt = self._rank_rows(binned, mesh)
+        if hi > lo:
+            tpts, mine = bs["tpts"][lo:hi], vals[lo:hi]
+            mine += near_field(tpts, fs["src_tiles"], wt, nbr, kparams=self.kernel_params,
+                               tcnt=tcnt, scnt=self._dev["src_scnt"])
+            if wtab is not None and self._m2p_tiles_gated:
+                mine += near_field_cells(tpts, wtab, wcnt, *self._cell_geometry(), mult,
+                                         kparams=self.kernel_params, tcnt=tcnt)
+            elif wtab is not None:
+                mine += near_field(tpts, fs["node_tiles"], self._m2p_tiles(mult), wtab, wcnt,
+                                   kparams=self.kernel_params, tcnt=tcnt)
+        sharding.all_reduce_sum(vals, mesh)
         return vals.reshape(-1, nr)[binned["inv_flat"]]
+
+    def shares(self, reuse_key) -> dict:
+        """This rank's share of a sharded ``evaluate_device`` at a prepared
+        target set: (owned, total) leaves of the P2M, target slots of the
+        M2L and target rows of the leaf pass."""
+        rows = self._target_cache[reuse_key]["tcnt"].shape[0]
+        slots = sum(src_tab.shape[1] for src_tab, _, _ in self._dev["m2l_levels"])
+
+        def owned(n):
+            lo, hi = sharding.rank_range(n, self.mesh)
+            return (hi - lo, n)
+
+        return {"leaves": owned(self.nsl), "m2l_slots": owned(slots), "rows": owned(rows)}
 
     def _cell_geometry(self):
         """(centres, lengths, reference nodes), float64, for the gated M2P."""
@@ -726,15 +804,17 @@ class FmmTree:
         """Full matvec at a prepared target set, device tensor in and out.
 
         ``weights_dev`` (N, nrhs) on ``self.device``; returns (n_targets,
-        nrhs) float64. ``precision`` "f32" runs every pass in float32.
+        nrhs) float64. ``precision`` "f32" runs every pass in float32. Under
+        the tree's mesh every rank passes the same weights and gets the same
+        result, its passes shared out over the ranks.
         """
         dtype = _PRECISIONS[precision]
         binned = self._target_cache[reuse_key]
         fs = self._floats(dtype)
         wt = self._weight_tiles_of(weights_dev, dtype)
-        mult = self._upward(wt, fs)
-        local = self._downward(mult, wt, fs)
-        return self._leaf(binned, dtype, fs, local, mult, wt).to(torch.float64)
+        mult = self._upward(wt, fs, self.mesh)
+        local = self._downward(mult, wt, fs, self.mesh)
+        return self._leaf(binned, dtype, fs, local, mult, wt, self.mesh).to(torch.float64)
 
     def evaluate(self, weights, target_points, reuse_key=None) -> np.ndarray:
         """Downward + leaf pass at ``target_points`` (f64); host array out."""

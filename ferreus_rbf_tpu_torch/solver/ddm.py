@@ -26,6 +26,16 @@ the level keeps full-size leaves and stores no factors: every application
 assembles, factors and solves them (recompute-from-points), dropping for
 that application any domain whose block is not SPD.
 ``FERREUS_RBF_TPU_DDM_RECOMPUTE=0`` keeps shrink-to-fit.
+
+Each level's domains, its buckets end to end, are solved in pieces that
+do not depend on the world size (``parallel.pieces``: blocks of at least
+``_MIN_BLOCK_DOMAINS`` domains, cut again at the bucket boundaries) and
+factored in chunks of a piece. A
+tree built under ``parallel.use_mesh`` factors and solves only this rank's
+pieces, so factor memory and time split across the ranks, and one
+all-reduce per level application joins the solves: each internal point
+belongs to one domain of a level, so the sum is exact and every rank holds
+one rank's bits. The coarse level stays replicated.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from ..ops.polynomials import (
     evaluate_monomials,
     get_lagrange_coefficients,
 )
+from ..parallel import sharding
 from ..utils.common import farthest_point_sampling, get_cheb_cube_scaling_factors
 from ..utils.timing import record_event, traced_stage
 from .domain import Domain, _rank_from_pivoted_qr
@@ -80,6 +91,22 @@ def _factor_chunk(s_pad: int) -> int:
     """Domains per factor call: the assembly temporaries scale as nb * S^2
     (A, the QTAQ products and the Cholesky workspace, ~2 GB per chunk)."""
     return max(1, int(2e9 // (s_pad * s_pad * 8 * 6)))
+
+
+# Fewest domains in a block of a level's solves. A batched triangular solve
+# of a few hundred domains takes about as long as one of a few dozen (the
+# card is not full), so cutting such a level into blocks multiplies its
+# time on one card and saves nothing on several: a level of fewer domains
+# than twice this is one block, solved by one rank (PERF.md).
+_MIN_BLOCK_DOMAINS = 2048
+
+
+def _factor_chunks(lo: int, hi: int, s_pad: int):
+    """The domains ``lo:hi`` of a bucket as slices of at most one factor
+    chunk each, cut from ``lo`` (a piece's start: the same on any number of
+    ranks)."""
+    step = _factor_chunk(s_pad)
+    return [slice(c, min(c + step, hi)) for c in range(lo, hi, step)]
 
 
 def _leaf_qtaq_structure(points, indices, internal_mask, settings, global_trend=None):
@@ -162,20 +189,20 @@ def _factor_drop_failed(pts, mask, q_top, scatter_idx, n_out, **kw):
     return chol, torch.where(failed[:, None], n_out, scatter_idx)
 
 
-def solve_bucket(residual, bucket, n_out):
-    """Batched local solves of one bucket; returns (n_out, nrhs) with the
-    internal-point coefficients filled (disjoint across domains)."""
+def solve_piece(residual, bucket, sl, chol, scatter_idx, out):
+    """Batched local solves of the domains ``sl`` of one bucket with their
+    factors ``chol``; adds their internal-point coefficients into ``out``
+    (n_out + 1, nrhs), whose last row is the sink of the other rows
+    (internal points are disjoint across domains, so each row takes one
+    add)."""
     k = bucket["k"]
-    chol = bucket["chol"]
-    d = residual[bucket["pts_idx"]] * bucket["mask"][..., None]  # (nb, S, nrhs)
-    q_top = bucket["q_top"]
+    d = residual[bucket["pts_idx"][sl]] * bucket["mask"][sl, :, None]  # (nb, S, nrhs)
+    q_top = bucket["q_top"][sl]
     rhs = q_top.transpose(1, 2) @ d[:, :k] + d[:, k:] if k else d
     y = torch.linalg.solve_triangular(chol, rhs.to(chol.dtype), upper=False)
     gamma = torch.linalg.solve_triangular(chol.transpose(1, 2), y, upper=True).to(torch.float64)
     lam = torch.cat([q_top @ gamma, gamma], dim=1) if k else gamma
-    out = residual.new_zeros((n_out + 1, residual.shape[1]))  # row n_out = sink
-    out.index_add_(0, bucket["scatter_idx"].reshape(-1), lam.reshape(-1, lam.shape[2]))
-    return out[:n_out]
+    out.index_add_(0, scatter_idx.reshape(-1), lam.reshape(-1, lam.shape[2]))
 
 
 class DDMTree:
@@ -203,6 +230,11 @@ class DDMTree:
         self.global_trend = global_trend
         self.factor_dtype = factor_dtype
         self.device = torch.device(device)
+        self.mesh = sharding.active_mesh()
+        # stored factor bytes of all ranks and of this one; Schwarz domains
+        # of all fine levels and this rank's
+        self.factor_bytes = self.factor_bytes_rank = 0
+        self.domains = self.domains_rank = 0
         self.levels: list[Level] = []
         self._pts_dev = torch.as_tensor(self.points, device=self.device)
         self._build()
@@ -339,18 +371,22 @@ class DDMTree:
 
     # ---------------------------------------------------------- device plan
     def _factorise_level(self, level: Level):
-        """Group leaves into (S, k) buckets; batched factor on the device
-        (a recompute level stores its buckets without factors)."""
+        """Group leaves into (S, k) buckets and factor this rank's pieces of
+        them on the device, batched (a recompute level stores its buckets
+        without factors). ``bucket["pieces"]`` lists this rank's (lo, hi)
+        domain ranges, ``bucket["chol"]`` their factors."""
         kparams = self.settings.kernel_params()
         groups = {}
         for plan in level.leaf_plans:
             s_pad = _next_multiple(max(plan.point_indices.size, 8), 64)
             groups.setdefault((s_pad, plan.rank), []).append(plan)
+        groups = list(groups.items())
 
         n_out = self.points.shape[0] + self.settings.basis_size
         dev = self.device
         pts_d = self._pts_dev
-        for (s_pad, k), plans in groups.items():
+        itemsize = 4 if self.factor_dtype == torch.float32 else 8
+        for (s_pad, k), plans in groups:
             nb = len(plans)
             pts_idx = np.zeros((nb, s_pad), np.int64)
             mask = np.zeros((nb, s_pad), bool)
@@ -363,29 +399,40 @@ class DDMTree:
                 internal[b, :npts] = plan.internal_mask
                 if k:
                     q_top[b, :, : npts - k] = plan.q_top
-            mask_d = torch.as_tensor(mask, device=dev)
-            q_top_d = torch.as_tensor(q_top, device=dev)
-            pts_idx_d = torch.as_tensor(pts_idx, device=dev)
             # internal rows scatter to their point; the rest to the sink n_out
-            scatter_d = torch.as_tensor(np.where(internal & mask, pts_idx, n_out), device=dev)
-            bucket = {"pts_idx": pts_idx_d, "mask": mask_d, "q_top": q_top_d, "k": k,
-                      "scatter_idx": scatter_d}
+            bucket = {"pts_idx": torch.as_tensor(pts_idx, device=dev),
+                      "mask": torch.as_tensor(mask, device=dev),
+                      "q_top": torch.as_tensor(q_top, device=dev), "k": k,
+                      "scatter_idx": torch.as_tensor(np.where(internal & mask, pts_idx, n_out),
+                                                     device=dev),
+                      "pieces": []}
+            if not level.recompute:
+                bucket["chol"] = []
+                self.factor_bytes += nb * (s_pad - k) ** 2 * itemsize
             level.buckets.append(bucket)
+            self.domains += nb
+        sizes = [len(plans) for _, plans in groups]
+        blocks = max(1, sum(sizes) // _MIN_BLOCK_DOMAINS)
+        for g, lo, hi in sharding.pieces(sizes, self.mesh, blocks=blocks):
+            (s_pad, k), plans = groups[g]
+            bucket = level.buckets[g]
+            bucket["pieces"].append((lo, hi))
+            self.domains_rank += hi - lo
             if level.recompute:
                 continue
-            chunk = _factor_chunk(s_pad)
-            chol = torch.empty((nb, s_pad - k, s_pad - k), dtype=self.factor_dtype, device=dev)
-            failed = torch.empty(nb, dtype=torch.bool, device=dev)
-            for lo in range(0, nb, chunk):
-                sl = slice(lo, lo + chunk)
-                chol[sl], failed[sl] = factor_bucket(
-                    pts_d[pts_idx_d[sl]], mask_d[sl], q_top_d[sl], kparams=kparams,
-                    nugget=self.settings.nugget, k=k, dtype=self.factor_dtype,
+            chol = torch.empty((hi - lo, s_pad - k, s_pad - k), dtype=self.factor_dtype, device=dev)
+            failed = torch.empty(hi - lo, dtype=torch.bool, device=dev)
+            for sl in _factor_chunks(lo, hi, s_pad):
+                at = slice(sl.start - lo, sl.stop - lo)
+                chol[at], failed[at] = factor_bucket(
+                    pts_d[bucket["pts_idx"][sl]], bucket["mask"][sl], bucket["q_top"][sl],
+                    kparams=kparams, nugget=self.settings.nugget, k=k, dtype=self.factor_dtype,
                 )
             bad = np.nonzero(failed.cpu().numpy())[0]
             if bad.size:
-                self._host_refactor(plans, chol, bad, k)
-            bucket["chol"] = chol
+                self._host_refactor(plans[lo:hi], chol, bad, k)
+            bucket["chol"].append(chol)
+            self.factor_bytes_rank += chol.numel() * chol.element_size()
 
     def _host_refactor(self, plans, chol, bad, k):
         """Host rescue for non-SPD leaves: dense Cholesky with a growing
@@ -421,34 +468,32 @@ class DDMTree:
 
     # ------------------------------------------------------------- solves
     def solve_fine_level(self, level_idx: int, residual):
-        """All leaf solves of one level; returns internal-row coefficients."""
+        """All leaf solves of one level; returns internal-row coefficients.
+        Under a sharded mesh each rank solves its pieces and one all-reduce
+        joins them."""
         n_out = residual.shape[0]
-        out = residual.new_zeros((n_out, residual.shape[1]))
+        out = residual.new_zeros((n_out + 1, residual.shape[1]))  # row n_out = sink
         level = self.levels[level_idx]
         for bucket in level.buckets:
-            if level.recompute:
-                out += self._solve_recompute_bucket(residual, bucket, n_out)
-            else:
-                out += solve_bucket(residual, bucket, n_out)
-        return out
+            for i, (lo, hi) in enumerate(bucket["pieces"]):
+                if not level.recompute:
+                    solve_piece(residual, bucket, slice(lo, hi), bucket["chol"][i],
+                                bucket["scatter_idx"][lo:hi], out)
+                    continue
+                for sl in _factor_chunks(lo, hi, bucket["pts_idx"].shape[1]):
+                    chol, scatter = self._recompute_factors(bucket, sl, n_out)
+                    solve_piece(residual, bucket, sl, chol, scatter, out)
+        sharding.all_reduce_sum(out, self.mesh)
+        return out[:n_out]
 
-    def _solve_recompute_bucket(self, residual, bucket, n_out):
-        """Assemble, factor and solve one bucket that stores no factors, in
-        batch chunks whose assembly and factor transients stay ~2 GB."""
-        kw = dict(kparams=self.settings.kernel_params(), nugget=self.settings.nugget,
-                  k=bucket["k"], dtype=self.factor_dtype)
-        nb, s_pad = bucket["pts_idx"].shape
-        chunk = _factor_chunk(s_pad)
-        out = residual.new_zeros((n_out, residual.shape[1]))
-        for lo in range(0, nb, chunk):
-            part = {key: bucket[key][lo : lo + chunk]
-                    for key in ("pts_idx", "mask", "q_top", "scatter_idx")}
-            part["chol"], part["scatter_idx"] = _factor_drop_failed(
-                self._pts_dev[part["pts_idx"]], part["mask"], part["q_top"],
-                part["scatter_idx"], n_out, **kw)
-            part["k"] = bucket["k"]
-            out += solve_bucket(residual, part, n_out)
-        return out
+    def _recompute_factors(self, bucket, sl, n_out):
+        """Assemble and factor the domains ``sl`` (at most one factor chunk)
+        of a bucket that stores no factors: (factors, scatter rows), a
+        domain that is not SPD scattering into the sink."""
+        return _factor_drop_failed(
+            self._pts_dev[bucket["pts_idx"][sl]], bucket["mask"][sl], bucket["q_top"][sl],
+            bucket["scatter_idx"][sl], n_out, kparams=self.settings.kernel_params(),
+            nugget=self.settings.nugget, k=bucket["k"], dtype=self.factor_dtype)
 
     def coarse_device_arrays(self):
         """The coarse solve's data on the tree's device, for the fused FGMRES

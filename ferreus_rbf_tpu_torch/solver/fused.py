@@ -40,7 +40,14 @@ again (a replay runs everything it captured) to each dict in ``COUNTS``.
 
 Three gates keep the host loop (``ok`` False, ``gate`` names the one that
 fired): the coarse system is not SPD; a Schwarz level recomputes its
-factors per application; the stored factors exceed ``FACTOR_BYTES_MAX``.
+factors per application; the stored factors of all ranks exceed
+``FACTOR_BYTES_MAX``.
+
+Under a mesh every rank runs the same cycles on the same bits. Over NCCL
+the capture holds the passes' all-reduces (the eager first cycle has run
+each of them once); gloo's cannot be captured, so under a gloo mesh of
+more ranks than one every cycle runs eagerly (``stats["graphs"]`` stays 0
+and ``stats["graph_gate"]`` says why, from ``Mesh.capturable``).
 """
 
 from __future__ import annotations
@@ -126,11 +133,13 @@ class FusedSystem:
         self.n, self.m = system.n, system.m
         ddm = system.ddm_tree
         self.ddm = ddm
-        self.factor_bytes = sum(
-            b["chol"].numel() * b["chol"].element_size()
-            for level in ddm.levels[:-1] for b in level.buckets if "chol" in b)
+        self.factor_bytes = ddm.factor_bytes  # the same on every rank
+        mesh = system.fmm_tree.mesh
         self.stats = {"graphs": 0, "capture_s": 0.0, "cycles": 0, "replays": 0,
-                      "host_pulls": 0, "inner_iterations": 0, "masked_steps": 0}
+                      "host_pulls": 0, "inner_iterations": 0, "masked_steps": 0,
+                      "graph_gate": None}
+        if mesh is not None and not mesh.capturable:
+            self.stats["graph_gate"] = "gloo collectives cannot be captured"
         self._graphs = {}
         self._stream = None
         self.ok, self.gate = False, None
@@ -251,6 +260,7 @@ class FusedSystem:
         replay it; ``eager`` runs the cycle eagerly all the same."""
         key = (prec, bool(tol_abs), int(mi))
         graph = self._graphs.get(key)
+        eager = eager or self.stats["graph_gate"] is not None
         self.stats["cycles"] += 1
         if graph is not None and not eager:
             return self._replay(graph, b, x, r, beta, tol)

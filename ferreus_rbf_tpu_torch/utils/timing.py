@@ -86,10 +86,27 @@ def global_tracer() -> Tracer | None:
     return _GLOBAL_TRACER
 
 
+_EVENTS_MUTED = False
+
+
 def record_event(name: str, payload: dict) -> None:
-    """Append a structured event to the global tracer (no-op when off)."""
-    if _GLOBAL_TRACER is not None:
+    """Append a structured event to the global tracer (no-op when off or
+    muted)."""
+    if _GLOBAL_TRACER is not None and not _EVENTS_MUTED:
         _GLOBAL_TRACER.events.append({"event": name, **payload})
+
+
+@contextlib.contextmanager
+def muted_events(muted: bool = True):
+    """Drop the events recorded inside the block when ``muted`` (the stage
+    timers still run): every rank of a mesh but rank 0 fits under it, so
+    that the events of a sharded fit form one stream."""
+    global _EVENTS_MUTED
+    prev, _EVENTS_MUTED = _EVENTS_MUTED, _EVENTS_MUTED or muted
+    try:
+        yield
+    finally:
+        _EVENTS_MUTED = prev
 
 
 @contextlib.contextmanager

@@ -11,6 +11,8 @@ Tolerances (max |diff| / max |reference|): 1e-5 in f32 (the f32 tier's
 bound), 1e-12 in f64 (summation order only).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -521,3 +523,77 @@ def test_sync_inside_the_captured_cycle_raises(cuda):
     with pytest.raises(RuntimeError):
         fs.cycle("f32", False, 5, b, torch.zeros_like(b), b, float(torch.linalg.norm(b)), 1e-14)
     assert fs.stats["cycles"] == 1 and fs.stats["graphs"] == 0
+
+
+def _two_rank_matvecs(rank, init_file, out_dir):
+    """One of two gloo ranks sharing ``cuda:0``: the clustered tree's f32
+    and f64 matvecs, default and with the gate forced, sharded and one
+    rank of the same tree; writes ``rank<r>.npz``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from ferreus_rbf_tpu_torch import parallel
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    mesh = parallel.make_mesh(2, backend="gloo")
+    rng = np.random.default_rng(3)
+    blob = rng.normal(scale=0.02, size=(2000, 3)) + 0.25
+    pts = np.clip(np.concatenate([blob, rng.random((500, 3))]), 0, 1)
+    params = frt.FmmParams(interpolation_order=4, max_points_per_cell=64, epsilon=1e-4)
+    w = torch.as_tensor(rng.standard_normal((pts.shape[0], 2)), device=mesh.device)
+    out = {"device": str(mesh.device)}
+    for gate in ("default", "0"):
+        if gate == "0":
+            os.environ["FERREUS_RBF_TPU_NODETILE_BYTES"] = "0"
+        trees = []
+        for m in (None, mesh):
+            with parallel.use_mesh(m) if m else contextlib.nullcontext():
+                tree = FmmTree(pts, 4, _params("Spheroidal5Rbf"), adaptive_tree=True,
+                               sparse=True, params=params)
+            tree.prepare_targets(pts, "src")
+            trees.append(tree)
+        out[f"{gate}_gated"] = trees[1]._m2p_tiles_gated
+        for prec in ("f32", "f64"):
+            nf.reset_launches()
+            got = trees[1].evaluate_device(w, "src", prec)
+            out[f"{gate}_{prec}_h4"] = sum(v for k, v in nf.LAUNCHES.items()
+                                           if k.startswith("near_field_cells"))
+            out[f"{gate}_{prec}"] = torch.equal(got, trees[0].evaluate_device(w, "src", prec))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+@pytest.fixture
+def two_ranks(cuda, tmp_path):
+    import time
+
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.start_processes(_two_rank_matvecs, args=(str(tmp_path / "init"), str(tmp_path)),
+                              nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=1):  # raises when a rank fails
+            assert time.monotonic() < deadline, "the ranks ran past 300 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+
+
+def test_two_gloo_ranks_on_one_card_match_one_rank(two_ranks):
+    """Two gloo ranks on ``cuda:0``: ``evaluate_device`` at f32 and f64,
+    on the clustered tree and with the node-tile gate forced (M2P on H4,
+    launched on each rank), bit for bit a one-rank matvec of the same
+    tree."""
+    for out in two_ranks:
+        assert str(out["device"]) == "cuda:0"
+        for gate in ("default", "0"):
+            assert bool(out[f"{gate}_gated"]) == (gate == "0")
+            for prec in ("f32", "f64"):
+                assert bool(out[f"{gate}_{prec}"]), (gate, prec)
+                assert (int(out[f"{gate}_{prec}_h4"]) > 0) == (gate == "0")
