@@ -17,7 +17,11 @@ Phases (any failure raises and the script exits non-zero):
    or 128 live targets and tiles of 0 to S live sources, nrhs {1, 2, 8},
    two launches bitwise equal and dead slots 0; then the cell-node kernels
    H4 (f32, f64, gradients) the same way, with live target counts,
-   sentinel cells and targets that coincide with cell nodes;
+   sentinel cells and targets that coincide with cell nodes; all of it at
+   d = 3, and again at d = 2 and d = 1 (points of those dimensions: H1/H2
+   nrhs {1, 8} and H3 nrhs {1, 2} with and without counts, coincident
+   targets, H4 on cells of p^d nodes; the skewed live-count lists at d = 3
+   only);
 3. config-2 matvec: 100k uniform 3-D points, LinearRbf, p = 5, 8 RHS,
    uniform tree, at f32 and f64, against a dense f64 oracle on 1,024
    targets; median of 5 timed matvecs;
@@ -55,7 +59,9 @@ Phases (any failure raises and the script exits non-zero):
    H1/H2 timed on the fit's own last operands of each neighbour table (P2P
    and M2P of "__all__" and of each DDM level set, P2L) against the plain
    version, with the table's calls in the fit; the fit's solver path and
-   the gate that kept the host loop;
+   the gate that kept the host loop; the interaction lists of the fit's
+   octree built by the native builder and by the numpy one, equal, with
+   each one's seconds;
 8. the M2P node-tile gate at 1M: phase 7's weights on one tree with the
    gate at its default and one with ``FERREUS_RBF_TPU_NODETILE_BYTES=0``
    (gated, M2P on H4): f32 and f64 matvecs and gradients at 4,096 sources,
@@ -91,17 +97,39 @@ Phases (any failure raises and the script exits non-zero):
     rank, H4 launched on every rank; with each rank's launches of H1, H2
     and H4, its share of leaves, M2L slots, rows and Schwarz domains, its
     factor bytes and its peak device memory. A rank that fails fails the
-    run.
+    run;
+11. the 1-D and 2-D paths and the examples (run after phase 9, before
+    phase 10): (a) 2-D: Franke's function at 250,000 random points (seed
+    42), ThinPlateSpline, default Params, fitted twice (the second bit for
+    bit the first), with its residual, ``evaluate_at_source``, a dense f64
+    oracle at 1,024 sources, its stages, DDM levels, peak device memory and
+    per-leg launches; a 512^2 grid evaluated, and with gradients against a
+    dense f64 gradient at 1,024 grid points (H3 at d = 2); phase 8's gate
+    check on its points and coefficients (gated tree: M2P on H4 at d = 2,
+    bit for bit the ungated tree); H1, H2 and H3 timed on the legs of a
+    tree over its points, with live pair rates; (b) 1-D: sin(12 x) + 0.3
+    cos(31 x) at 100,000 random points on [0, 1] (seed 5), LinearRbf,
+    default Params, the same fit checks, a 65,536-point evaluation (its
+    tree has no w-lists, so no M2P and no gate) and H1/H2 timed on its
+    P2P leg; (c) the nine examples of
+    ``ferreus_rbf_tpu_torch/examples`` on the card at full size, each in a
+    temporary directory, with its seconds and launches: the line its JAX
+    counterpart's test expects, ``isosurface_sphere``'s 540 vertices and
+    1076 facets, ``boundary_closure``'s lines equal to the JAX example's,
+    ``franke_2d``'s errors below 1e-6 and 1e-2, the albatite fits'
+    printed residuals below 1e-4 of max |values|, and phase 6's checks on
+    every mesh written.
 
 Repeat evaluations on the card are bitwise equal (the M2M adds its octants
 in a fixed order), and the script holds them so: phase 4 runs
 ``evaluate_device`` twice on one tree (f32 and f64) and
 ``evaluate_with_gradients`` twice on the 64^3 grid, phase 8 compares the
 gated and ungated trees and a tree against itself after a second upward
-and downward pass, phase 9 a saved and loaded model and phase 10 every
-sharded result against one rank, each bit for bit.
+and downward pass, phase 9 a saved and loaded model, phase 10 every
+sharded result against one rank and phase 11 each fit against its repeat
+and the 2-D gated tree against the ungated one, each bit for bit.
 
-Phases 4-10 each zero the kernels' launch counters just before they drive
+Phases 4-11 each zero the kernels' launch counters just before they drive
 the port and read them just after (phase 10 in each rank). The line before the last is a JSON
 object with one entry per kernel: its launches on its path (phase 4 for
 H1/H2, phase 6 for H3, phase 8's gated tree for H4), its error and time
@@ -239,14 +267,16 @@ def near_field_bound(kparams, ops, tlive, slive, grad, nrhs=None):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def phase_kernels(nf, kt_mod, dev):
+def phase_kernels(nf, kt_mod, dev, d=3):
     """H1/H2: all kernel types x {f32, f64} x {counts, none} x nrhs {1, 8};
-    H3: all kernel types x {counts, none} x nrhs {1, 2, 8}, f64, with
-    targets that are exact copies of sources."""
+    H3: all kernel types x {counts, none} x nrhs {1, 2, 8} (d = 3) or {1,
+    2} (d = 1, 2), f64, with targets that are exact copies of sources; at
+    d = 3 both again with live counts on a skewed list. ``d``: the points'
+    dimension."""
     g = torch.Generator(device="cpu").manual_seed(0)
     rows, t, s, u, ntiles = 300, 128, 256, 27, 400
-    tgt = torch.rand((rows, t, 3), generator=g, dtype=torch.float64) - 0.5
-    src = torch.rand((ntiles + 1, 3, s), generator=g, dtype=torch.float64) - 0.5
+    tgt = torch.rand((rows, t, d), generator=g, dtype=torch.float64) - 0.5
+    src = torch.rand((ntiles + 1, d, s), generator=g, dtype=torch.float64) - 0.5
     src[:, :, 200:] = 0.0  # padded slots at the centre
     nbr = torch.randint(0, ntiles, (u, rows), generator=g, dtype=torch.int32)
     nbr[20:, ::3] = ntiles  # sentinel entries
@@ -273,58 +303,59 @@ def phase_kernels(nf, kt_mod, dev):
                         if float(out[0].abs().max()) != 0.0:
                             raise AssertionError("a row with count 0 must be zero")
     for dtype, err in worst.items():
-        log(f"phase 2: 10 kernel types x counts x nrhs {{1,8}}, {dtype}: "
+        log(f"phase 2: d = {d}, 10 kernel types x counts x nrhs {{1,8}}, {dtype}: "
             f"worst relative error {err:.3e} (bound {TOL[dtype]:.0e})")
 
-    # H1/H2 with live counts: one row lists 216 tiles, the rest at most 8;
-    # rows of 0, 1, 9 or 128 live targets; tiles of 0 to S live sources
-    ntiles = 400
-    scnt = torch.randint(0, s + 1, (ntiles + 1,), generator=g, dtype=torch.int32)
-    scnt[:2] = torch.tensor([0, s], dtype=torch.int32)
-    scnt[ntiles] = 0
-    u = 216
-    nbr = torch.randint(0, ntiles, (u, rows), generator=g, dtype=torch.int32)
-    nbr[u - 1, ::2] = ntiles
-    nbr[:, 1] = torch.randperm(ntiles, generator=g)[:u].int()
-    cnt = torch.randint(0, 9, (rows,), generator=g, dtype=torch.int32)
-    cnt[:2] = torch.tensor([0, u], dtype=torch.int32)
-    choice = torch.tensor([0, 1, 9, 128], dtype=torch.int32)
-    tcnt = choice[torch.randint(0, 4, (rows,), generator=g)]
-    tcnt[1] = 128
-    src = torch.rand((ntiles + 1, 3, s), generator=g, dtype=torch.float64) - 0.5
-    slot_live = torch.arange(s)[None, None, :] < scnt.long()[:, None, None]
-    lists = [nf.work_items(*(x.to(d) for x in (nbr, cnt, tcnt, scnt)), t=t, s=s, l1=ntiles + 1)
-             for d in (dev, torch.device("cpu"))]
-    if not (all(torch.equal(a.cpu(), b) for a, b in zip(lists[0][:3], lists[1][:3]))
-            and lists[0].nparts == lists[1].nparts):
-        raise AssertionError("the work list built on the card is not the CPU's")
-    worst = {}
-    for nrhs in (1, 2, 8):
-        w = torch.randn((ntiles + 1, nrhs, s), generator=g, dtype=torch.float64)
-        w = torch.where(slot_live, w, 0.0)
-        for kt in kt_mod.KernelType:
-            kw = {"base_range": 1.0, "total_sill": 0.7} if "Spheroidal" in kt.value else {}
-            kp = kt_mod.KernelParams(kt, **kw)
-            for dtype in (torch.float32, torch.float64):
-                ops = [x.to(dev, dtype) for x in (tgt, src, w)] + [nbr.to(dev), cnt.to(dev)]
-                counts = {"tcnt": tcnt.to(dev), "scnt": scnt.to(dev)}
-                err, _ = kernel_vs_plain(nf, kp, *ops, counts=counts)
-                key = (kt.value, str(dtype).split(".")[-1], nrhs)
-                if not err <= TOL[dtype]:
-                    raise AssertionError(f"live counts, kernel vs plain {key}: {err:.3e}")
-                worst[dtype] = max(worst.get(dtype, 0.0), err)
-                out = nf.near_field(*ops, kparams=kp, **counts)
-                again = nf.near_field(*ops, kparams=kp, **counts)
-                dead = torch.arange(t, device=dev)[None, :] >= counts["tcnt"][:, None]
-                if not torch.equal(out, again):
-                    raise AssertionError(f"live counts {key}: two launches differ")
-                if float(out[dead].abs().max()) != 0.0 or float(out[0].abs().max()) != 0.0:
-                    raise AssertionError(f"live counts {key}: a dead slot is not 0")
-    for dtype, err in worst.items():
-        log(f"phase 2: live counts (a 216-tile row, tcnt in {{0,1,9,128}}, scnt 0..{s}), "
-            f"10 kernel types x nrhs {{1,2,8}}, {dtype}: worst relative error {err:.3e} "
-            f"(bound {TOL[dtype]:.0e}); two launches bitwise equal, dead slots 0; the work "
-            f"list built on the card equals the CPU's")
+    if d == 3:
+        # H1/H2 with live counts: one row lists 216 tiles, the rest at most 8;
+        # rows of 0, 1, 9 or 128 live targets; tiles of 0 to S live sources
+        ntiles = 400
+        scnt = torch.randint(0, s + 1, (ntiles + 1,), generator=g, dtype=torch.int32)
+        scnt[:2] = torch.tensor([0, s], dtype=torch.int32)
+        scnt[ntiles] = 0
+        u = 216
+        nbr = torch.randint(0, ntiles, (u, rows), generator=g, dtype=torch.int32)
+        nbr[u - 1, ::2] = ntiles
+        nbr[:, 1] = torch.randperm(ntiles, generator=g)[:u].int()
+        cnt = torch.randint(0, 9, (rows,), generator=g, dtype=torch.int32)
+        cnt[:2] = torch.tensor([0, u], dtype=torch.int32)
+        choice = torch.tensor([0, 1, 9, 128], dtype=torch.int32)
+        tcnt = choice[torch.randint(0, 4, (rows,), generator=g)]
+        tcnt[1] = 128
+        src = torch.rand((ntiles + 1, 3, s), generator=g, dtype=torch.float64) - 0.5
+        slot_live = torch.arange(s)[None, None, :] < scnt.long()[:, None, None]
+        lists = [nf.work_items(*(x.to(on) for x in (nbr, cnt, tcnt, scnt)), t=t, s=s,
+                               l1=ntiles + 1) for on in (dev, torch.device("cpu"))]
+        if not (all(torch.equal(a.cpu(), b) for a, b in zip(lists[0][:3], lists[1][:3]))
+                and lists[0].nparts == lists[1].nparts):
+            raise AssertionError("the work list built on the card is not the CPU's")
+        worst = {}
+        for nrhs in (1, 2, 8):
+            w = torch.randn((ntiles + 1, nrhs, s), generator=g, dtype=torch.float64)
+            w = torch.where(slot_live, w, 0.0)
+            for kt in kt_mod.KernelType:
+                kw = {"base_range": 1.0, "total_sill": 0.7} if "Spheroidal" in kt.value else {}
+                kp = kt_mod.KernelParams(kt, **kw)
+                for dtype in (torch.float32, torch.float64):
+                    ops = [x.to(dev, dtype) for x in (tgt, src, w)] + [nbr.to(dev), cnt.to(dev)]
+                    counts = {"tcnt": tcnt.to(dev), "scnt": scnt.to(dev)}
+                    err, _ = kernel_vs_plain(nf, kp, *ops, counts=counts)
+                    key = (kt.value, str(dtype).split(".")[-1], nrhs)
+                    if not err <= TOL[dtype]:
+                        raise AssertionError(f"live counts, kernel vs plain {key}: {err:.3e}")
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    out = nf.near_field(*ops, kparams=kp, **counts)
+                    again = nf.near_field(*ops, kparams=kp, **counts)
+                    dead = torch.arange(t, device=dev)[None, :] >= counts["tcnt"][:, None]
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"live counts {key}: two launches differ")
+                    if float(out[dead].abs().max()) != 0.0 or float(out[0].abs().max()) != 0.0:
+                        raise AssertionError(f"live counts {key}: a dead slot is not 0")
+        for dtype, err in worst.items():
+            log(f"phase 2: live counts (a 216-tile row, tcnt in {{0,1,9,128}}, scnt 0..{s}), "
+                f"10 kernel types x nrhs {{1,2,8}}, {dtype}: worst relative error {err:.3e} "
+                f"(bound {TOL[dtype]:.0e}); two launches bitwise equal, dead slots 0; the work "
+                f"list built on the card equals the CPU's")
 
     # H3: values and gradients, f64; some targets are exact copies of sources
     tgt64 = tgt.clone()
@@ -332,7 +363,7 @@ def phase_kernels(nf, kt_mod, dev):
         tile = int(nbr[0, r])
         tgt64[r, :20] = src[tile, :, :20].T
     worst = 0.0
-    for nrhs in (1, 2, 8):
+    for nrhs in (1, 2, 8) if d == 3 else (1, 2):
         w = torch.randn((ntiles + 1, nrhs, s), generator=g, dtype=torch.float64)
         w[:, :, 200:] = 0.0
         w[ntiles] = 0.0
@@ -350,9 +381,11 @@ def phase_kernels(nf, kt_mod, dev):
                     v, gr = nf.near_field_grad(*ops, c, kparams=kp)
                     if float(v[0].abs().max()) != 0.0 or float(gr[0].abs().max()) != 0.0:
                         raise AssertionError("H3: a row with count 0 must be zero")
-    log(f"phase 2: H3 near_field_grad_f64, 10 kernel types x counts x nrhs {{1,2,8}}, "
-        f"coincident targets: worst relative error {worst:.3e} (values and gradients; "
-        f"bound 1e-12)")
+    log(f"phase 2: d = {d}, H3 near_field_grad_f64, 10 kernel types x counts x nrhs "
+        f"{{1,2{',8' if d == 3 else ''}}}, coincident targets: worst relative error "
+        f"{worst:.3e} (values and gradients; bound 1e-12)")
+    if d != 3:
+        return
 
     # H3 with live counts on the skewed list: sources past scnt carry random
     # weights, which must weigh nothing
@@ -400,19 +433,19 @@ def cells_vs_plain(nf, kparams, ops, grad=False, tcnt=None):
             max(float((a - b).abs().max()) for a, b in zip(got, want)))
 
 
-def phase_kernels_cells(nf, kt_mod, dev):
+def phase_kernels_cells(nf, kt_mod, dev, d=3):
     """H4: all kernel types x {f32, f64, gradients} x {counts, none} x nrhs
-    {1, 2, 8} on p = 7 cells (343 nodes: 11 staging chunks, the last
-    partial), with sentinel cells, a row of count 0, rows of 0, 1, 9, 100
-    or 128 live targets and targets that coincide with nodes of a listed
-    cell; two launches bitwise equal and dead slots 0."""
+    {1, 2, 8} on p = 7 cells (p^d nodes; at d = 3 343: 11 staging chunks,
+    the last partial), with sentinel cells, a row of count 0, rows of 0, 1,
+    9, 100 or 128 live targets and targets that coincide with nodes of a
+    listed cell; two launches bitwise equal and dead slots 0."""
     from ferreus_rbf_tpu_torch.ops.fmm import cheb
 
     g = torch.Generator(device="cpu").manual_seed(5)
     f64 = torch.float64
     p, ncells, rows, t, u = 7, 300, 160, 128, 16
-    nodes = torch.as_tensor(cheb.nodes_tensor_product(cheb.chebyshev_nodes(p), 3))
-    centers = torch.rand((ncells, 3), generator=g, dtype=f64) - 0.5
+    nodes = torch.as_tensor(cheb.nodes_tensor_product(cheb.chebyshev_nodes(p), d))
+    centers = torch.rand((ncells, d), generator=g, dtype=f64) - 0.5
     lengths = 0.05 + 0.15 * torch.rand((ncells,), generator=g, dtype=f64)
     cells = torch.randint(0, ncells, (u, rows), generator=g, dtype=torch.int32)
     cells[12:, ::3] = ncells  # sentinel cells
@@ -423,10 +456,11 @@ def phase_kernels_cells(nf, kt_mod, dev):
     choice = torch.tensor([0, 1, 9, 100, 128], dtype=torch.int32)
     tcnt = choice[torch.randint(0, 5, (rows,), generator=g)].to(dev)
     dead = torch.arange(t, device=dev)[None, :] >= tcnt[:, None]
-    tgt = torch.rand((rows, t, 3), generator=g, dtype=f64) - 0.5
+    tgt = torch.rand((rows, t, d), generator=g, dtype=f64) - 0.5
     for r in range(1, rows, 7):  # exact copies of a listed cell's nodes
         c = int(cells[0, r])
-        tgt[r, :20] = centers[c] + (lengths[c] * 0.5) * nodes[:20]
+        k = min(20, nodes.shape[0])
+        tgt[r, :k] = centers[c] + (lengths[c] * 0.5) * nodes[:k]
     geo = [x.to(dev) for x in (centers, lengths, nodes)]
     worst = {}
     for nrhs in (1, 2, 8):
@@ -466,8 +500,9 @@ def phase_kernels_cells(nf, kt_mod, dev):
                             raise AssertionError(f"H4 {(kt.value, key, nrhs)}: a dead slot is "
                                                  f"not 0")
     for key, err in worst.items():
-        log(f"phase 2: H4 near_field_cells {key}, 10 kernel types x counts x nrhs {{1,2,8}}, "
-            f"with and without live target counts, p = 7 cells, coincident targets: worst "
+        log(f"phase 2: d = {d}, H4 near_field_cells {key}, 10 kernel types x counts x nrhs "
+            f"{{1,2,8}}, with and without live target counts, p = 7 cells ({p ** d} nodes), "
+            f"coincident targets: worst "
             f"relative error {err:.3e} (bound {TOL[torch.float32 if key == 'float32' else f64]:.0e}); "
             f"two launches bitwise equal, dead slots 0")
 
@@ -1055,6 +1090,21 @@ def phase_config2_gradients(nf, dev):
     log_near_field("phase 5: config-2 nrhs 2", "near_field_grad_f64", r)
 
 
+def mesh_checks(verts, facets, nonempty=True):
+    """The mesh checks of phases 6, 9 and 11: non-empty (where asked),
+    finite vertices, facet indices in range, no edge on more than two
+    facets. Returns (max facets per edge, boundary edges) or raises."""
+    edges = np.sort(facets[:, [0, 1, 1, 2, 2, 0]].reshape(-1, 2), axis=1)
+    _, uses = np.unique(edges, axis=0, return_counts=True)
+    if nonempty and facets.shape[0] == 0:
+        raise AssertionError("an empty mesh")
+    if not np.isfinite(verts).all() or (facets.size and facets.max() >= verts.shape[0]):
+        raise AssertionError("vertices not finite or facets out of range")
+    if uses.size and uses.max() > 2:
+        raise AssertionError("an edge is used by more than two facets")
+    return (int(uses.max()) if uses.size else 0), int((uses == 1).sum())
+
+
 def phase_isosurface(frt, nf, timing, rbfi, pts, span, label="phase 6"):
     """The isosurface path: RMT on an albatite fit at span/100 (phase 6;
     phase 9 under the trend). Returns the launches."""
@@ -1112,20 +1162,16 @@ def phase_isosurface(frt, nf, timing, rbfi, pts, span, label="phase 6"):
     verts, facets = mesh.vertices, mesh.facets
     pad = resolution * 10.0
     inside = bool(np.all(verts >= extents[:3] - pad) and np.all(verts <= extents[3:] + pad))
-    edges = np.sort(facets[:, [0, 1, 1, 2, 2, 0]].reshape(-1, 2), axis=1)
-    _, uses = np.unique(edges, axis=0, return_counts=True)
+    most, boundary = mesh_checks(verts, facets)
     log(f"{label}: albatite isosurface at span/100 ({resolution:.6g}) {iso_s:.3f} s: "
         f"{mesh.num_vertices} vertices, {mesh.num_facets} facets; {json.dumps(calls)}; "
-        f"max facets per edge {int(uses.max()) if uses.size else 0}, "
-        f"boundary edges {int((uses == 1).sum())}")
+        f"max facets per edge {most}, boundary edges {boundary}")
     log(f"{label}: stages (s) {json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
     log(f"{label}: nf_work_items {tracer.totals.get('nf_work_items', 0.0):.3f} s over "
         f"{len(builds)} work lists built")
     log(f"{label}: launches {json.dumps(launches)}")
-    if mesh.num_facets == 0 or not np.isfinite(verts).all() or not inside:
-        raise AssertionError("isosurface empty, not finite, or outside the padded extents")
-    if uses.max() > 2:
-        raise AssertionError("an edge is used by more than two facets")
+    if not inside:
+        raise AssertionError("isosurface outside the padded extents")
     if not (launches["near_field_f64"] > 0 and launches["near_field_grad_f64"] > 0):
         raise AssertionError(f"H2 or H3 never launched in {label}: {launches}")
     return launches
@@ -1181,6 +1227,40 @@ def time_fit_legs(nf, kparams, legs):
                        {f"{key.split('_')[0]} rows {tgt.shape[0]}, {calls} calls": m})
 
 
+def list_builders(rbfi):
+    """Phase 7: the interaction lists of the fit's octree built both ways,
+    the native builder (``csrc/treebuild.cpp``) and the numpy one, with
+    their host seconds; u and w must come out equal and v equal as a set
+    once the numpy list drops sources without points (as the FMM plan
+    does)."""
+    import copy
+
+    from ferreus_rbf_tpu_torch.ops.fmm import tree as tree_mod
+
+    pts = rbfi.points
+    center, radius = tree_mod.calculate_tree_center_and_radius(
+        np.concatenate([pts.min(axis=0), pts.max(axis=0)]))
+    octree = tree_mod.build_tree(pts, center, radius,
+                                 rbfi.params.fmm_params.max_points_per_cell, False, 3, True)
+    ref = copy.copy(octree)
+    t0 = time.perf_counter()
+    tree_mod._build_interaction_lists(octree)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree_mod._build_interaction_lists_numpy(ref)
+    numpy_s = time.perf_counter() - t0
+    ref_v = ref.v_pairs[ref.has_points[ref.v_pairs[:, 1]]]
+    rows = lambda a: a[np.lexsort(a.T[::-1])]  # noqa: E731
+    same = (np.array_equal(octree.u_pairs, ref.u_pairs)
+            and np.array_equal(octree.w_pairs, ref.w_pairs)
+            and np.array_equal(rows(octree.v_pairs), rows(ref_v)))
+    log(f"phase 7: interaction lists of the fit's octree ({octree.num_cells} cells; u "
+        f"{octree.u_pairs.shape[0]}, v {octree.v_pairs.shape[0]}, w {octree.w_pairs.shape[0]} "
+        f"pairs): native {native_s:.3f} s, numpy {numpy_s:.3f} s; equal: {same}")
+    if not same:
+        raise AssertionError("the native and numpy interaction lists differ")
+
+
 def phase_config4(frt, nf, timing, dev, n=1_000_000):
     """Config 4: the 1M-point LinearRbf signed-distance fit, default Params."""
     from ferreus_rbf_tpu_torch.ops.fmm import api
@@ -1217,6 +1297,7 @@ def phase_config4(frt, nf, timing, dev, n=1_000_000):
     log(f"phase 7: solver path {json.dumps(solver_path(tracer, fit_s, fit_peak_gb))}")
     time_fit_legs(nf, rbfi.interpolant_settings.kernel_params(), legs)
     del legs
+    list_builders(rbfi)
 
     vals = rbfi.point_values[:, 0]
     tracer = timing.enable_global_tracer()
@@ -1253,9 +1334,10 @@ def phase_config4(frt, nf, timing, dev, n=1_000_000):
 GATE_ENV = "FERREUS_RBF_TPU_NODETILE_BYTES"
 
 
-def phase_gate(nf, dev, rbfi):
-    """The node-tile gate at 1M: a default tree and a forced-gated one over
-    phase 7's points and weights. Returns H4's kernel-line entries."""
+def phase_gate(nf, dev, rbfi, label="phase 8"):
+    """The node-tile gate: a default tree and a forced-gated one over a fit's
+    points and weights (phase 7's at 1M; phase 11's 2-D fit). Returns H4's
+    kernel-line entries."""
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
 
     pts = rbfi.points
@@ -1273,7 +1355,7 @@ def phase_gate(nf, dev, rbfi):
         return tree, time.perf_counter() - t0
 
     if GATE_ENV in os.environ:
-        raise RuntimeError(f"unset {GATE_ENV}: phase 8 compares the default gate with 0")
+        raise RuntimeError(f"unset {GATE_ENV}: {label} compares the default gate with 0")
     ungated, t_u = build()
     os.environ[GATE_ENV] = "0"
     try:
@@ -1281,13 +1363,13 @@ def phase_gate(nf, dev, rbfi):
     finally:
         del os.environ[GATE_ENV]
     budget = 1.5e9
-    log(f"phase 8: trees built in {t_u:.3f} s (default gate) and {t_g:.3f} s (gate 0); "
+    log(f"{label}: trees built in {t_u:.3f} s (default gate) and {t_g:.3f} s (gate 0); "
         f"w-list cells {ungated.m2p_cells}, node-tile bytes {ungated.nodetile_bytes} "
         f"(saved when gated), default gate fired: {ungated._m2p_tiles_gated}; at this "
         f"density the gate would fire unforced near N = {n * budget / ungated.nodetile_bytes:.4g} "
         f"(linear in N)")
     if ungated._m2p_tiles_gated or not gated._m2p_tiles_gated:
-        raise AssertionError("phase 8 needs one ungated and one gated tree")
+        raise AssertionError(f"{label} needs one ungated and one gated tree")
 
     wd = torch.as_tensor(w, device=dev)
     idx = np.sort(np.random.default_rng(6).choice(n, 4096, replace=False))
@@ -1309,12 +1391,12 @@ def phase_gate(nf, dev, rbfi):
     again = [torch.as_tensor(x) for x in ungated.evaluate_with_gradients(w, pts[idx])]
     noise = [rel_err(a, b) for a, b in zip(again, out["ungated"][2:])]
     repeat = all(torch.equal(a, b) for a, b in zip(again, out["ungated"][2:]))
-    log(f"phase 8: gated vs ungated, bitwise equal (f32 matvec, f64 matvec, values and "
+    log(f"{label}: gated vs ungated, bitwise equal (f32 matvec, f64 matvec, values and "
         f"gradients at 4,096 sources): {same}, apart by {[f'{e:.3e}' for e in errs]}; the "
         f"ungated tree against itself after a second upward and downward pass, bitwise "
         f"equal: {repeat} (values {noise[0]:.3e}, gradients {noise[1]:.3e})")
-    log(f"phase 8: gated vs ungated f64 matvec bitwise equal: {same[1]}")
-    log(f"phase 8: launches ungated {json.dumps(launches['ungated'])}; "
+    log(f"{label}: gated vs ungated f64 matvec bitwise equal: {same[1]}")
+    log(f"{label}: launches ungated {json.dumps(launches['ungated'])}; "
         f"gated {json.dumps(launches['gated'])}")
     cells = ("near_field_cells_f32", "near_field_cells_f64", "near_field_cells_grad_f64")
     if not all(launches["gated"][k] > 0 for k in cells):
@@ -1334,7 +1416,7 @@ def phase_gate(nf, dev, rbfi):
     slive = torch.full((gated.tree.num_cells + 1,), gated.nnodes, device=dev)
     slive[-1] = 0
     sel = torch.argsort(binned["wcnt"], descending=True)[:256]
-    log(f"phase 8: w-list cells per row: max {int(binned['wcnt'].max())}, mean over rows "
+    log(f"{label}: w-list cells per row: max {int(binned['wcnt'].max())}, mean over rows "
         f"{float(binned['wcnt'].double().mean()):.2f}, rows {binned['wcnt'].shape[0]}")
     entries = {}
     for name, dtype, grad in (("near_field_cells_f32", torch.float32, False),
@@ -1376,7 +1458,7 @@ def phase_gate(nf, dev, rbfi):
         bound_ms, bound_by, flops = near_field_bound(kp, ops, tlive, slive, grad,
                                                      nrhs=mult.shape[2])
         pairs = float((binned["wcnt"].double() * tlive.double()).sum()) * gated.nnodes
-        log(f"phase 8: {name} gated M2P with live target counts, rows {tpts.shape[0]}: "
+        log(f"{label}: {name} gated M2P with live target counts, rows {tpts.shape[0]}: "
             f"kernel {ms:.4f} ms ({pairs / (ms * 1e-3) / 1e9:.1f} live Gpair/s, "
             f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}), "
             f"plain {plain_ms:.4f} ms, max |diff| {absd:.3e}: {rel:.3e} of max |out|, "
@@ -1816,6 +1898,270 @@ def phase_sharded(dev, refs, config2_ms=None):
 
 
 # the mangled name of near_field_work_items_kernel<KT, T, NR, GRAD, CELLS>
+# phase 11: the 2-D and 1-D cells, and the examples
+DIMS_BOUND = 1e-4  # evaluate_at_source and the dense oracle, relative to max |values|
+DIMS_GRAD_BOUND = 1e-3  # gradients (p >= 7) against a dense f64 gradient
+# The JAX example's lines (examples/boundary_closure.py on the CPU): its RMT
+# is host numpy in both packages, so the port must print them exactly. Its
+# seed, (1, 0, 0), lies outside the clip box (x <= 0.6), so every mode
+# extracts an empty mesh.
+BOUNDARY_CLOSURE_LINES = [
+    "          None: V=   0 F=   0 watertight=True volume=  0.0000",
+    " ClosePositive: V=   0 F=   0 watertight=True volume=  0.0000",
+    " CloseNegative: V=   0 F=   0 watertight=True volume=  0.0000",
+]
+# franke_2d's two errors; the JAX example printed 3.501e-08 and 4.038e-03
+# on the CPU
+FRANKE_BOUNDS = (1e-6, 1e-2)
+# (example, a line its JAX counterpart prints; tests/test_examples.py)
+EXAMPLES = (
+    ("isosurface_sphere", "sphere mesh: 540 vertices, 1076 facets"),
+    ("boundary_closure", "V="),
+    ("franke_2d", "max residual at sources"),
+    ("isosurface_linear", "vertices"),
+    ("isosurface_linear_rmt", "vertices"),
+    ("isosurface_linear_topo", "clipped below topography"),
+    ("isosurface_spheroidal", "vertices"),
+    ("isosurface_spheroidal_drift", "poly coefficients"),
+    ("isosurface_trend_linear", "vertices"),
+)
+
+
+def dims_fit(frt, nf, timing, dev, label, pts, vals, settings):
+    """One fit of phase 11, twice in this process: the second must repeat
+    the first's bits. Checks the solver's residual, ``evaluate_at_source``
+    and a dense f64 oracle at 1,024 sources; logs seconds, stages, DDM
+    levels, FMM trees, per-leg launches and peak device memory. Returns
+    the fit and its tracer."""
+    from ferreus_rbf_tpu_torch.ops.fmm import api
+
+    fits = []
+    for run in ("first", "again"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tracer = timing.enable_global_tracer()
+        nf.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with LegCounter(api) as legs:
+                rbfi = frt.RBFInterpolator(pts, vals, settings, device=dev)
+                torch.cuda.synchronize()
+        finally:
+            timing.disable_global_tracer()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        log(f"{label}: fit ({run}) {json.dumps(solver_path(tracer, fit_s, peak))}")
+        log(f"{label}: fit ({run}) launches {json.dumps(dict(nf.LAUNCHES))} (per leg "
+            f"{json.dumps(legs.calls)})")
+        fits.append((rbfi, tracer))
+        del legs
+    (rbfi, tracer), (again, _) = fits
+    same = [np.array_equal(coefficient_array(again.coefficients, k),
+                           coefficient_array(rbfi.coefficients, k)) for k in ("point", "poly")]
+    del again, fits
+    strip = lambda e: {k: v for k, v in e.items() if k != "event"}  # noqa: E731
+    events = tracer.events
+    done = [e for e in events if e["event"] == "solve_done"][-1]
+    log(f"{label}: fit stages (s) {json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
+    for name in ("ddm_level", "fmm_tree"):
+        log(f"{label}: {name} {json.dumps([strip(e) for e in events if e['event'] == name])}")
+    log(f"{label}: the second fit repeats the first's bits (point, poly): {same}")
+
+    vals = rbfi.point_values[:, 0]
+    t0 = time.perf_counter()
+    pred = rbfi.evaluate_at_source(add_nugget=True)
+    eval_s = time.perf_counter() - t0
+    scale = float(np.max(np.abs(vals)))
+    rel = float(np.max(np.abs(pred - vals))) / scale
+    idx = np.sort(np.random.default_rng(3).choice(vals.size, 1024, replace=False))
+    oracle = dense_oracle(rbfi, idx, dev)
+    value_err = float(np.max(np.abs(pred[idx] - oracle))) / float(np.max(np.abs(oracle)))
+    true_res = float(np.max(np.abs(oracle - vals[idx]))) / scale
+    log(f"{label}: evaluate_at_source {eval_s:.3f} s, max residual / max|vals| {rel:.3e}; "
+        f"dense f64 oracle on 1,024 sources: evaluation vs oracle {value_err:.3e}, oracle "
+        f"residual {true_res:.3e} (bounds {DIMS_BOUND:.0e})")
+    if not (done["converged"] and done["residual"] <= 1e-6):
+        raise AssertionError(f"{label}: solver residual {done['residual']:.3e}, converged "
+                             f"{done['converged']}")
+    if not all(same):
+        raise AssertionError(f"{label}: a second fit does not repeat the first's bits")
+    if not (pred.shape == vals.shape and np.isfinite(pred).all() and rel < DIMS_BOUND):
+        raise AssertionError(f"{label}: source residual {rel:.3e}")
+    if not (value_err < DIMS_BOUND and true_res < DIMS_BOUND):
+        raise AssertionError(f"{label}: oracle: evaluation {value_err:.3e}, residual {true_res:.3e}")
+    return rbfi, tracer
+
+
+def time_dims_legs(nf, rbfi, dev, label, grad):
+    """H1 and H2 (and H3 when ``grad``) timed on the legs of a tree over a
+    phase-11 fit's points (the fit's FMM parameters, its sources as the
+    targets, 1 RHS), against the plain version (one checking call each;
+    f32 held against the sum of |terms|), with live pair rates to set
+    beside phase 4's 3-D albatite legs."""
+    from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
+
+    fp = rbfi.params.fmm_params
+    kp = rbfi.interpolant_settings.kernel_params()
+    tree = FmmTree(rbfi.points, fp.interpolation_order, kp, adaptive_tree=True, sparse=True,
+                   params=fp, device=dev)
+    tree.prepare_targets(rbfi.points, "__all__")
+    g = torch.Generator(device="cpu").manual_seed(2)
+    kernels = [("near_field_f32", torch.float32, False), ("near_field_f64", torch.float64, False)]
+    for name, dtype, as_grad in kernels + ([("near_field_grad_f64", torch.float64, True)]
+                                           if grad else []):
+        legs = tree_legs(tree, "__all__", dtype, 1, g, with_p2l=not as_grad)
+        log_near_field(label, name, {
+            leg: time_leg(nf, kp, dtype, *ops, grad=as_grad, f32_scale=dtype == torch.float32,
+                          plain_reps=0)
+            for leg, ops in legs.items()})
+
+
+def phase_dims(frt, nf, timing, dev):
+    """Phase 11 (a, b): the 2-D fit with its 512^2 grid, gradients and
+    gated tree, and the 1-D fit with its 65,536-point evaluation."""
+    from ferreus_rbf_tpu_torch.ops.fmm import api
+
+    # (a) 2-D: Franke's function, ThinPlateSpline, default Params
+    pts = frt.generate_random_points(250_000, 2, seed=42)
+    vals = frt.RBFTestFunctions.franke_2d(pts)
+    settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.ThinPlateSpline)
+    label = "phase 11: 2-D"
+    rbfi, _ = dims_fit(frt, nf, timing, dev, label, pts, vals, settings)
+    side = 512
+    grid = frt.create_evaluation_grid([(0.0, 1.0), (0.0, 1.0)], [side, side])
+    t0 = time.perf_counter()
+    grid_vals = rbfi.evaluate(grid)
+    grid_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nf.reset_launches()
+    t0 = time.perf_counter()
+    with LegCounter(api, "near_field_grad") as grad_legs:
+        gv, gg = rbfi.evaluate_with_gradients(grid)
+        torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_launches = dict(nf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    sub = np.sort(np.random.default_rng(4).choice(grid.shape[0], 1024, replace=False))
+    dense = dense_gradients(rbfi, grid[sub], dev)
+    val_err = rel_err(torch.as_tensor(gv), torch.as_tensor(grid_vals))
+    grad_err = float(np.max(np.abs(gg[sub] - dense))) / float(np.max(np.abs(dense)))
+    franke = float(np.max(np.abs(grid_vals - frt.RBFTestFunctions.franke_2d(grid))))
+    log(f"{label}: {side}^2 grid evaluate {grid_s:.3f} s (max error vs Franke's function "
+        f"{franke:.3e}); evaluate_with_gradients {grad_s:.3f} s ({grad_s / grid_s:.3f}x "
+        f"value-only), peak device memory {peak:.3f} GB; values vs evaluate {val_err:.3e} "
+        f"(bound 1e-12); gradients vs dense f64 on 1,024 grid points {grad_err:.3e} of max "
+        f"|grad| (bound {DIMS_GRAD_BOUND:.0e}); launches {json.dumps(grad_launches)} (per leg "
+        f"{json.dumps(grad_legs.calls)})")
+    h3_launch_time(nf, settings.kernel_params(), grad_legs, grad_s,
+                   f"{label}: {side}^2 evaluate_with_gradients")
+    del grad_legs
+    if not (grid_vals.shape == (side * side,) and np.isfinite(grid_vals).all()
+            and gg.shape == (side * side, 2) and np.isfinite(gg).all()):
+        raise AssertionError(f"{label}: grid values or gradients not finite or misshapen")
+    if not (val_err <= 1e-12 and grad_err <= DIMS_GRAD_BOUND):
+        raise AssertionError(f"{label}: gradients: values {val_err:.3e}, grads {grad_err:.3e}")
+    if not grad_launches["near_field_grad_f64"] > 0:
+        raise AssertionError(f"{label}: H3 never launched in the gradients: {grad_launches}")
+    phase_gate(nf, dev, rbfi, label=f"{label} gate")
+    time_dims_legs(nf, rbfi, dev, label, grad=True)
+    del rbfi, gv, gg
+    torch.cuda.empty_cache()
+
+    # (b) 1-D: sin(12 x) + 0.3 cos(31 x) on [0, 1], LinearRbf, default Params
+    x = np.random.default_rng(5).random((100_000, 1))
+    f = np.sin(12 * x[:, 0]) + 0.3 * np.cos(31 * x[:, 0])
+    settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
+    label = "phase 11: 1-D"
+    rbfi, tracer = dims_fit(frt, nf, timing, dev, label, x, f, settings)
+    m1 = 65_536
+    grid = frt.create_evaluation_grid([(0.0, 1.0)], [m1])
+    nf.reset_launches()
+    t0 = time.perf_counter()
+    grid_vals = rbfi.evaluate(grid)
+    grid_s = time.perf_counter() - t0
+    want = np.sin(12 * grid[:, 0]) + 0.3 * np.cos(31 * grid[:, 0])
+    m2p_cells = [e["m2p_cells"] for e in tracer.events if e["event"] == "fmm_tree"]
+    log(f"{label}: {m1}-point evaluate {grid_s:.3f} s, launches "
+        f"{json.dumps(dict(nf.LAUNCHES))}, max error vs f {np.max(np.abs(grid_vals - want)):.3e}; "
+        f"w-list cells of the fit's trees {m2p_cells}: without w-lists there is no M2P, and "
+        f"the node-tile gate has nothing to gate (H4 at d = 1 is held in phase 2)")
+    if not (grid_vals.shape == (m1,) and np.isfinite(grid_vals).all()):
+        raise AssertionError(f"{label}: grid values not finite or misshapen")
+    time_dims_legs(nf, rbfi, dev, label, grad=False)
+    del rbfi
+    torch.cuda.empty_cache()
+
+
+def read_obj(path):
+    """(vertices, facets) of an OBJ file written by ``Mesh.save_obj``."""
+    verts, facets = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                verts.append([float(t) for t in line.split()[1:4]])
+            elif line.startswith("f "):
+                facets.append([int(t) - 1 for t in line.split()[1:4]])
+    return np.array(verts, np.float64).reshape(-1, 3), np.array(facets, np.int64).reshape(-1, 3)
+
+
+def phase_examples(nf, dev):
+    """Phase 11 (c): the nine examples on the card, at full size, each in
+    this process in a temporary directory, with its printed lines, seconds,
+    launches and the checks of every mesh it wrote."""
+    import contextlib
+    import importlib
+    import io
+
+    from ferreus_rbf_tpu_torch.examples.common import load_albatite
+
+    scale = float(np.max(np.abs(load_albatite()[1])))  # the fit residuals' bound: 1e-4 of it
+    cwd = os.getcwd()
+    for name, expect in EXAMPLES:
+        module = importlib.import_module(f"ferreus_rbf_tpu_torch.examples.{name}")
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            nf.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    module.main(["--device", str(dev)])
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+            seconds = time.perf_counter() - t0
+            launches = {k: v for k, v in nf.LAUNCHES.items() if v}
+            out = buf.getvalue()
+            meshes = {}
+            for fname in sorted(os.listdir(tmp)):
+                if fname.endswith(".obj"):
+                    verts, facets = read_obj(os.path.join(tmp, fname))
+                    meshes[fname] = (verts.shape[0], facets.shape[0],
+                                     *mesh_checks(verts, facets, name != "boundary_closure"))
+        log(f"phase 11: example {name} {seconds:.3f} s, launches {json.dumps(launches)}; "
+            f"meshes (vertices, facets, max facets per edge, boundary edges) "
+            f"{json.dumps(meshes)}; printed: {json.dumps(out.rstrip().splitlines()[-4:])}")
+        if expect not in out:
+            raise AssertionError(f"example {name} did not print {expect!r}:\n{out}")
+        if name == "boundary_closure" and out.splitlines() != BOUNDARY_CLOSURE_LINES:
+            raise AssertionError(f"boundary_closure printed other lines than the JAX "
+                                 f"example:\n{out}")
+        if name == "franke_2d":
+            errs = [float(re.search(pat + r": (\S+)", out).group(1))
+                    for pat in ("max residual at sources", "max grid error vs analytic Franke")]
+            if not all(e < b for e, b in zip(errs, FRANKE_BOUNDS)):
+                raise AssertionError(f"franke_2d errors {errs}, bounds {FRANKE_BOUNDS}")
+        if name.startswith("isosurface_") and name != "isosurface_sphere" and not meshes:
+            raise AssertionError(f"example {name} wrote no mesh")
+        if name in ("isosurface_linear", "isosurface_spheroidal"):
+            resid = float(re.search(r"fit residual: (\S+)", out).group(1))
+            if not resid < DIMS_BOUND * scale:
+                raise AssertionError(f"example {name}: fit residual {resid:.3e}, bound "
+                                     f"{DIMS_BOUND * scale:.3e}")
+
+
 _ITEM_KERNEL = r"near_field_work_items_kernelILi(\d+)E([fd])Li(\d+)ELb([01])ELb([01])E"
 _ITEM_LABELS = {("0", "0"): "H1/H2", ("1", "0"): "H3 grad", ("0", "1"): "H4 cells",
                 ("1", "1"): "H4 cells grad"}
@@ -1876,19 +2222,24 @@ def main():
         f"({nf.BUILD_INFO['path']})")
     log_ptxas(nf.BUILD_INFO["log"])
 
-    phase_kernels(nf, kt_mod, dev)
-    phase_kernels_cells(nf, kt_mod, dev)
+    for d in (3, 2, 1):
+        phase_kernels(nf, kt_mod, dev, d)
+        phase_kernels_cells(nf, kt_mod, dev, d)
     config2_ms = phase_config2(frt, nf, dev)
     rbfi, pts, span, entries, host = phase_albatite(frt, nf, timing, dev)
     phase_config2_gradients(nf, dev)
     iso_launches = phase_isosurface(frt, nf, timing, rbfi, pts, span)
     entries["near_field_grad_f64"]["launches"] = iso_launches["near_field_grad_f64"]
     phase_trend(frt, nf, timing, dev)
+    t11 = time.perf_counter()
+    phase_dims(frt, nf, timing, dev)
+    phase_examples(nf, dev)
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     phase_sharded(dev, {"fused": rbfi.coefficients, "host": host.coefficients}, config2_ms)
     del rbfi, host
     rbfi4 = phase_config4(frt, nf, timing, dev)
     entries.update(phase_gate(nf, dev, rbfi4))
-    log(f"all ten phases in {time.perf_counter() - t_start:.1f} s (kernel build "
+    log(f"all eleven phases in {time.perf_counter() - t_start:.1f} s (kernel build "
         f"{nf.BUILD_INFO['seconds']:.2f} s)")
 
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

@@ -1,7 +1,10 @@
 """Host-side linear octree build + interaction lists as flat index arrays.
 
-Copy of ``ferreus_rbf_tpu/ops/fmm/tree.py`` that builds the interaction
-lists in numpy only (the native C++ construction is not ported yet).
+Copy of ``ferreus_rbf_tpu/ops/fmm/tree.py``. The interaction lists come
+from the port's native builder (``csrc/treebuild.cpp``, compiled with g++
+at first use by ``ferreus_rbf_tpu_torch.native``; a failed build raises),
+or from the numpy builder, ``_build_interaction_lists_numpy``, its plain
+version, under ``FERREUS_RBF_TPU_NATIVE=0``. Both give the same FMM plan.
 
 Replaces the HashMap/HashSet tree of the reference
 (``ferreus_bbfmm/src/linear_tree.rs``, ``morton.rs``) with a dense cell
@@ -31,6 +34,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from ... import native
+from ...utils.timing import traced_stage
 
 MAXIMUM_LEVEL = 15
 
@@ -358,7 +364,8 @@ def build_tree(
         _level_key_sorted=level_key_sorted,
     )
 
-    _build_interaction_lists(tree)
+    with traced_stage("fmm_interaction_lists"):
+        _build_interaction_lists(tree)
     return tree
 
 
@@ -382,7 +389,29 @@ def m2l_vector_id(delta: np.ndarray, d: int) -> np.ndarray:
 
 
 def _build_interaction_lists(tree: Octree) -> None:
-    """Populate u/v/w/x flat pair lists.
+    """Populate u/v/w/x flat pair lists with the native builder, or with
+    the numpy one under ``FERREUS_RBF_TPU_NATIVE=0``.
+
+    u and w come out as the numpy builder's: sorted unique rows. The native
+    v list holds only sources with points and runs in cell order; the FMM
+    plan drops the numpy list's other sources and does not depend on the
+    order (each (vector id, target) slot has one source), so both builders
+    give the same plan.
+    """
+    if not native.enabled():
+        _build_interaction_lists_numpy(tree)
+        return
+    v, u, w = native.build_interaction_lists(
+        tree.anchors, tree.levels, tree.parent, tree.children, tree.is_leaf,
+        tree.has_points)
+    tree.v_pairs = v
+    tree.u_pairs = np.unique(u, axis=0)
+    tree.w_pairs = np.unique(w, axis=0) if w.size else w
+    tree.x_pairs = tree.w_pairs[:, ::-1].copy()
+
+
+def _build_interaction_lists_numpy(tree: Octree) -> None:
+    """Populate u/v/w/x flat pair lists (the plain version).
 
     v: children of parent's colleagues, existing, non-adjacent (same level).
     u (leaves): adjacent leaves of any level, incl. self.

@@ -5,26 +5,24 @@
   (``near_field_cells``, kernel H4 on the card, its plain version here).
   Its plain versions are held against ``p2p_rows`` (Pallas, interpret
   mode) and the JAX package's virtual-node scan (``_near_field_class``) on
-  the JAX package's own gated row tables; the gated tree against the JAX
-  package's gated tree and against the port's ungated one.
-* The P2M and L2P weights computed per chunk above ``_WEIGHT_TABLE_BYTES``
-  against the resident tables.
+  the JAX package's own gated row tables, and the gate's budget. The gated
+  tree against the JAX package's gated tree and against the port's ungated
+  one is in ``test_torch_at_scale_gated.py``, the P2M and L2P weights made
+  per chunk in ``test_torch_at_scale_chunked.py``: each builds a slow
+  module fixture, and a file of its own lets the test run's workers take
+  them side by side.
 * The DDM's per-level leaf sizing (``FERREUS_RBF_TPU_DDM_MEM_GB``) and the
   recompute-from-points Schwarz solve (``FERREUS_RBF_TPU_DDM_RECOMPUTE``).
 
 Tolerances (max |diff| / max |reference|): 1e-5 in f32 (the f32 tier's
-bound), 1e-12 in f64 and for gradients (summation order only); chunked
-weights 1e-13 (f64) and 1e-6 (f32); a recompute Schwarz application 1e-10.
+bound), 1e-12 in f64 and for gradients (summation order only); a
+recompute Schwarz application 1e-10.
 """
-
-import functools
-import inspect
 
 import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import ferreus_rbf_tpu as jrt
@@ -75,6 +73,16 @@ def _port_tree(pts, name, **kw):
 def _jax_tree(pts, name):
     return japi.FmmTree(pts, P_ORDER, _params(jk, name), adaptive_tree=True, sparse=True,
                         params=JFP(compression_type=JFC.ACA, **FMM))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several workers on
+    the CPU's cores, and a torch thread pool per worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -215,74 +223,7 @@ def test_cells_wrapper_rejects_bad_operands(gated_rows):
                                  nodes, mult.float(), kparams=kp)
 
 
-# ------------------------------------------------------- (b) gated FmmTree
-
-
-def _interpret_kernels(monkeypatch):
-    """Run the JAX package's Pallas kernels in interpret mode (the recipe of
-    ``tests/test_fmm.py``, the JAX package's gate test)."""
-    for kname in ("p2p_leaf_pairs", "p2p_leaf_fused", "p2p_leaf_slab", "p2p_rows"):
-        fn = getattr(pp, kname)
-        statics = tuple(n for n in ("kparams", "interpret")
-                        if n in inspect.signature(fn.__wrapped__).parameters)
-        monkeypatch.setattr(pp, kname, functools.partial(
-            jax.jit(fn.__wrapped__, static_argnames=statics), interpret=True))
-
-
-@pytest.fixture(scope="module")
-def gated_trees():
-    """The JAX package's gated tree (f32 on its Pallas route in interpret
-    mode, so its M2P runs ``p2p_rows``; f64 and gradients on its scan) and
-    the port's gated and ungated trees: matvecs at the sources and
-    gradients at 600 of them, Spheroidal5, 2 RHS."""
-    pts = _clustered()
-    name = "Spheroidal5Rbf"
-    w = np.random.default_rng(5).standard_normal((pts.shape[0], 2))
-    out = {}
-    mp = pytest.MonkeyPatch()
-    try:
-        _interpret_kernels(mp)
-        mp.setenv(GATE, "0")
-        jt = _jax_tree(pts, name)
-        gt = _port_tree(pts, name)
-        mp.delenv(GATE)
-        ut = _port_tree(pts, name)
-        jt.prepare_targets(pts, "src")
-        jt.set_weights(w)
-        out[("jax", "grad")] = jt.evaluate_with_gradients(w, pts[:600])
-        out[("jax", "f64")] = np.asarray(jt.evaluate_device(jnp.asarray(w), "src", "f64"))
-        jt._use_pallas = True
-        out[("jax", "f32")] = np.asarray(jt.evaluate_device(jnp.asarray(w), "src", "f32"))
-    finally:
-        mp.undo()
-        jax.clear_caches()
-    assert jt._m2p_tiles_gated and gt._m2p_tiles_gated and not ut._m2p_tiles_gated
-    for key, tree in (("gated", gt), ("ungated", ut)):
-        tree.prepare_targets(pts, "src")
-        for prec in ("f32", "f64"):
-            out[(key, prec)] = tree.evaluate_device(torch.as_tensor(w), "src", prec).numpy()
-        tree.set_weights(w)
-        out[(key, "grad")] = tree.evaluate_with_gradients(w, pts[:600])
-    return out
-
-
-@pytest.mark.parametrize("prec,tol", [("f32", 1e-5), ("f64", 1e-12)])
-def test_gated_matvec_matches_jax_gated(gated_trees, prec, tol):
-    assert _rel(gated_trees[("gated", prec)], gated_trees[("jax", prec)]) < tol
-
-
-@pytest.mark.parametrize("prec,tol", [("f32", 1e-5), ("f64", 1e-12)])
-def test_gated_matvec_matches_ungated(gated_trees, prec, tol):
-    assert _rel(gated_trees[("gated", prec)], gated_trees[("ungated", prec)]) < tol
-
-
-@pytest.mark.parametrize("other", ["jax", "ungated"])
-def test_gated_gradients_match(gated_trees, other):
-    got_v, got_g = gated_trees[("gated", "grad")]
-    want_v, want_g = gated_trees[(other, "grad")]
-    assert got_g.shape == (600, 6)
-    assert _rel(got_v, want_v) < 1e-12
-    assert _rel(got_g, want_g) < 1e-12
+# ----------------------------------------------------------- (b) the gate
 
 
 def test_gate_budget_reads_the_jax_variable(monkeypatch):
@@ -296,49 +237,6 @@ def test_gate_budget_reads_the_jax_variable(monkeypatch):
     assert not _port_tree(pts, "LinearRbf")._m2p_tiles_gated
     monkeypatch.setenv(GATE, str(tree.nodetile_bytes - 1))
     assert _port_tree(pts, "LinearRbf")._m2p_tiles_gated
-
-
-# ------------------------------------------------- (c) chunked P2M and L2P
-
-
-@pytest.fixture(scope="module")
-def chunked_pair():
-    """The same tree with resident P2M/L2P tables and with the weights made
-    per chunk (budget 0), at a small ``eval_chunk_size`` so that both
-    passes take many chunks; Spheroidal5, 2 RHS."""
-    pts = _clustered()
-    targets = pts[::5]
-    w = np.random.default_rng(9).standard_normal((pts.shape[0], 2))
-    out = {}
-    mp = pytest.MonkeyPatch()
-    try:
-        for key, budget in (("resident", tapi._WEIGHT_TABLE_BYTES), ("chunked", 0)):
-            mp.setattr(tapi, "_WEIGHT_TABLE_BYTES", budget)
-            tree = _port_tree(pts, "Spheroidal5Rbf", eval_chunk_size=4)
-            tree.prepare_targets(pts, "src")
-            out[(key, "flags")] = ("p2m_w" in tree._floats64,
-                                   tree._target_cache["src"]["l2p_resident"])
-            for prec in ("f32", "f64"):
-                out[(key, prec)] = tree.evaluate_device(torch.as_tensor(w), "src", prec).numpy()
-            out[(key, "grad")] = tree.evaluate_with_gradients(w, targets)
-    finally:
-        mp.undo()
-    return out
-
-
-def test_chunked_weights_take_the_chunked_path(chunked_pair):
-    assert chunked_pair[("resident", "flags")] == (True, True)
-    assert chunked_pair[("chunked", "flags")] == (False, False)
-
-
-@pytest.mark.parametrize("prec,tol", [("f32", 1e-6), ("f64", 1e-13)])
-def test_chunked_weights_match_resident(chunked_pair, prec, tol):
-    assert _rel(chunked_pair[("chunked", prec)], chunked_pair[("resident", prec)]) < tol
-
-
-def test_chunked_gradients_match_resident(chunked_pair):
-    for got, want in zip(chunked_pair[("chunked", "grad")], chunked_pair[("resident", "grad")]):
-        assert _rel(got, want) < 1e-13
 
 
 # ----------------------------------------------- (d, e) DDM sizing, recompute

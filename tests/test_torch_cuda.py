@@ -43,13 +43,13 @@ def _rel(got, want):
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
-def test_kernel_matches_plain(cuda, dtype, name):
-    rng = np.random.default_rng(7)
+def _tile_operands(rng, cuda, dtype, d=3):
+    """H1/H2 operands of ``d``-dimensional points: 40 rows of 100 targets
+    over 9 of 30 tiles of 150 slots (120 live), sentinel entries and a
+    count-0 row; returns (tgt, src, w, nbr), cnt."""
     rows, t, s, ntiles, u, nrhs = 40, 100, 150, 30, 9, 3
-    src = np.zeros((ntiles + 1, 3, s))
-    src[:ntiles, :, :120] = rng.random((ntiles, 3, 120)) - 0.5
+    src = np.zeros((ntiles + 1, d, s))
+    src[:ntiles, :, :120] = rng.random((ntiles, d, 120)) - 0.5
     w = np.zeros((ntiles + 1, nrhs, s))
     w[:ntiles, :, :120] = rng.standard_normal((ntiles, nrhs, 120))
     nbr = rng.integers(0, ntiles, (u, rows)).astype(np.int32)
@@ -57,9 +57,14 @@ def test_kernel_matches_plain(cuda, dtype, name):
     cnt = rng.integers(0, u + 1, rows).astype(np.int32)
     cnt[0] = 0
     dev = lambda a, dt=dtype: torch.as_tensor(a).to(cuda, dt)  # noqa: E731
-    args = (dev(rng.random((rows, t, 3)) - 0.5), dev(src), dev(w), dev(nbr, torch.int32))
+    args = (dev(rng.random((rows, t, d)) - 0.5), dev(src), dev(w), dev(nbr, torch.int32))
+    return args, dev(cnt, torch.int32)
+
+
+def _check_tiles(cuda, dtype, name, d):
+    args, cnt = _tile_operands(np.random.default_rng(7), cuda, dtype, d)
     key = "near_field_f32" if dtype == torch.float32 else "near_field_f64"
-    for c in (None, dev(cnt, torch.int32)):
+    for c in (None, cnt):
         before = nf.LAUNCHES[key]
         got = nf.near_field(*args, c, kparams=_params(name))
         assert nf.LAUNCHES[key] == before + 1
@@ -67,6 +72,12 @@ def test_kernel_matches_plain(cuda, dtype, name):
         assert _rel(got, want) < TOL[dtype]
         if c is not None:
             assert float(got[0].abs().max()) == 0.0  # the count-0 row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
+def test_kernel_matches_plain(cuda, dtype, name):
+    _check_tiles(cuda, dtype, name, 3)
 
 
 def _skewed_operands(rng, cuda, dtype, nrhs):
@@ -132,17 +143,17 @@ def test_work_list_on_the_card_is_the_cpus(cuda, monkeypatch, budget):
         assert torch.equal(a.cpu(), b)
 
 
-def _grad_operands(rng, cuda):
+def _grad_operands(rng, cuda, d=3):
     rows, t, s, ntiles, u, nrhs = 40, 100, 150, 30, 9, 3
-    src = np.zeros((ntiles + 1, 3, s))
-    src[:ntiles, :, :120] = rng.random((ntiles, 3, 120)) - 0.5
+    src = np.zeros((ntiles + 1, d, s))
+    src[:ntiles, :, :120] = rng.random((ntiles, d, 120)) - 0.5
     w = np.zeros((ntiles + 1, nrhs, s))
     w[:ntiles, :, :120] = rng.standard_normal((ntiles, nrhs, 120))
     nbr = rng.integers(0, ntiles, (u, rows)).astype(np.int32)
     nbr[u - 1, ::2] = ntiles  # sentinel entries
     cnt = rng.integers(0, u + 1, rows).astype(np.int32)
     cnt[0] = 0
-    tgt = rng.random((rows, t, 3)) - 0.5
+    tgt = rng.random((rows, t, d)) - 0.5
     tgt[1, :10] = src[nbr[0, 1], :, :10].T  # exact copies of sources
     dev = lambda a: torch.as_tensor(a).to(cuda)  # noqa: E731
     return (dev(tgt), dev(src), dev(w), dev(nbr)), dev(cnt)
@@ -152,7 +163,11 @@ def _grad_operands(rng, cuda):
 def test_grad_kernel_matches_plain(cuda, name):
     """H3 against its plain version: values and gradients, with and without
     counts, a count-0 row, sentinel entries and coincident points."""
-    args, cnt = _grad_operands(np.random.default_rng(8), cuda)
+    _check_grad(cuda, name, 3)
+
+
+def _check_grad(cuda, name, d):
+    args, cnt = _grad_operands(np.random.default_rng(8), cuda, d)
     for c in (None, cnt):
         before = nf.LAUNCHES["near_field_grad_f64"]
         got_v, got_g = nf.near_field_grad(*args, c, kparams=_params(name))
@@ -288,22 +303,23 @@ def test_iterative_fit_on_card():
     assert resid < 5e-6, resid
 
 
-def _cell_operands(rng, cuda, dtype, nrhs=3):
+def _cell_operands(rng, cuda, dtype, nrhs=3, d=3):
     """H4 operands: 40 rows of 100 targets over 9 listed cells of 50 (p = 7,
-    343 nodes), sentinel cells, a count-0 row and targets on cell nodes."""
+    7^d nodes), sentinel cells, a count-0 row and targets on cell nodes."""
     from ferreus_rbf_tpu_torch.ops.fmm import cheb
 
     rows, t, u, ncells = 40, 100, 9, 50
-    nodes = cheb.nodes_tensor_product(cheb.chebyshev_nodes(7), 3)
-    centers = rng.random((ncells, 3)) - 0.5
+    nodes = cheb.nodes_tensor_product(cheb.chebyshev_nodes(7), d)
+    centers = rng.random((ncells, d)) - 0.5
     lengths = 0.05 + 0.1 * rng.random(ncells)
     cells = rng.integers(0, ncells, (u, rows)).astype(np.int32)
     cells[u - 1, ::2] = ncells  # sentinel cells
     cnt = rng.integers(0, u + 1, rows).astype(np.int32)
     cnt[0] = 0
-    tgt = rng.random((rows, t, 3)) - 0.5
+    tgt = rng.random((rows, t, d)) - 0.5
     c = cells[0, 1]
-    tgt[1, :10] = centers[c] + (lengths[c] * 0.5) * nodes[:10]  # on cell nodes
+    k = min(10, nodes.shape[0])
+    tgt[1, :k] = centers[c] + (lengths[c] * 0.5) * nodes[:k]  # on cell nodes
     mult = rng.standard_normal((ncells, nodes.shape[0], nrhs))
     dev = lambda a, dt=torch.float64: torch.as_tensor(a).to(cuda, dt)  # noqa: E731
     return (dev(tgt, dtype), dev(cells, torch.int32), dev(cnt, torch.int32), dev(centers),
@@ -313,9 +329,13 @@ def _cell_operands(rng, cuda, dtype, nrhs=3):
 @pytest.mark.parametrize("name", ["LinearRbf", "ThinPlateSplineRbf", "Spheroidal5Rbf"])
 def test_cells_kernel_matches_plain(cuda, name):
     """H4 (f32, f64 and gradients) against its plain version."""
+    _check_cells(cuda, name, 3)
+
+
+def _check_cells(cuda, name, d):
     kp = _params(name)
     for dtype, grad in ((torch.float32, False), (torch.float64, False), (torch.float64, True)):
-        ops = _cell_operands(np.random.default_rng(9), cuda, dtype)
+        ops = _cell_operands(np.random.default_rng(9), cuda, dtype, d=d)
         key = ("near_field_cells_grad_f64" if grad else
                "near_field_cells_f32" if dtype == torch.float32 else "near_field_cells_f64")
         before = nf.LAUNCHES[key]
@@ -597,3 +617,53 @@ def test_two_gloo_ranks_on_one_card_match_one_rank(two_ranks):
             for prec in ("f32", "f64"):
                 assert bool(out[f"{gate}_{prec}"]), (gate, prec)
                 assert (int(out[f"{gate}_{prec}_h4"]) > 0) == (gate == "0")
+
+
+# ------------------------------------------------------- d = 1 and d = 2
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
+def test_kernel_matches_plain_at_low_d(cuda, d, dtype, name):
+    """H1/H2 on 1-D and 2-D points against the plain version."""
+    _check_tiles(cuda, dtype, name, d)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("name", [kt.value for kt in tk.KernelType])
+def test_grad_kernel_matches_plain_at_low_d(cuda, d, name):
+    """H3 on 1-D and 2-D points: (R, T, nrhs, d) gradients."""
+    _check_grad(cuda, name, d)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("name", ["LinearRbf", "ThinPlateSplineRbf", "Spheroidal5Rbf"])
+def test_cells_kernel_matches_plain_at_low_d(cuda, d, name):
+    """H4 on cells of p^d = 7 and 49 nodes."""
+    _check_cells(cuda, name, d)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_low_d_fit_on_card_matches_cpu(cuda, d):
+    """An iterative fit of 1-D or 2-D points on the card: H1 and H2 launched,
+    converged, and its evaluation within 1e-5 of max |values| of the same
+    fit on the CPU (both solved to the 1e-6 tolerance)."""
+    if d == 1:
+        pts = np.random.default_rng(5).random((6000, 1))
+        vals = np.sin(12 * pts[:, 0]) + 0.3 * np.cos(31 * pts[:, 0])
+        kernel = frt.RBFKernelType.Linear
+    else:
+        pts = frt.generate_random_points(6000, 2, seed=42)
+        vals = frt.RBFTestFunctions.franke_2d(pts)
+        kernel = frt.RBFKernelType.ThinPlateSpline
+    settings = frt.InterpolantSettings(kernel_type=kernel)
+    nf.reset_launches()
+    card = frt.RBFInterpolator(pts, vals, settings, device=cuda)
+    assert nf.LAUNCHES["near_field_f32"] > 0 and nf.LAUNCHES["near_field_f64"] > 0
+    host = frt.RBFInterpolator(pts, vals, settings, device="cpu")
+    targets = np.random.default_rng(3).random((500, d))
+    got, want = card.evaluate(targets), host.evaluate(targets)
+    assert got.shape == want.shape == (500,)
+    assert np.max(np.abs(got - want)) < 1e-5 * np.max(np.abs(vals))
+    assert np.max(np.abs(card.evaluate_at_source(True) - vals)) < 1e-4 * np.max(np.abs(vals))
