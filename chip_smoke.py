@@ -87,17 +87,19 @@ Phases (any failure raises and the script exits non-zero):
    ``evaluate``;
 10. the sharded path (run after phase 9, before phase 7, while this
     process holds little device memory): ranks spawned over
-    ``torch.distributed``, two sharing ``cuda:0`` over gloo on a one-card
-    machine, ``min(4, cards)`` over NCCL on more, each of them under
+    ``torch.distributed``, eight sharing ``cuda:0`` over gloo on a one-card
+    machine, ``min(8, cards)`` over NCCL on more, each of them under
     ``parallel.use_mesh``: (a) config 2's matvec at f32 and f64, bit for bit
     a one-rank matvec of the same tree and the same on every rank, timed
     per rank against phase 3; (b) the albatite fit on the fused path and
-    on the host loop, converged and bit for bit phase 4's one-rank fits;
+    on the host loop, converged and bit for bit one-rank fits made in the
+    ranks (their host thread pools are the ranks');
     (c) the albatite tree with the gate forced, f32 and f64 bit for bit one
     rank, H4 launched on every rank; with each rank's launches of H1, H2
-    and H4, its share of leaves, M2L slots, rows and Schwarz domains, its
-    factor bytes and its peak device memory. A rank that fails fails the
-    run;
+    and H4, its share of leaves, M2L slots, L2P rows, near-field rows and
+    Schwarz domains, its factor bytes and its peak device memory, and the
+    slowest rank's config-2 median against phase 3's one rank. A rank that
+    fails fails the run;
 11. the 1-D and 2-D paths and the examples (run after phase 9, before
     phase 10): (a) 2-D: Franke's function at 250,000 random points (seed
     42), ThinPlateSpline, default Params, fitted twice (the second bit for
@@ -698,25 +700,42 @@ def synced_median(fn, reps=5):
     return sorted(times)[reps // 2]
 
 
-def phase_config2(frt, nf, dev):
-    from ferreus_rbf_tpu_torch.ops.dense import dense_matvec
-    from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
-    from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType, make_kernel
-
-    n, nrhs, p = 100_000, 8, 5
+def config2_data(dev):
+    """Config 2's points (100,000 uniform, seed 42), 8 RHS of weights on
+    ``dev`` and the generator after those draws."""
     rng = np.random.default_rng(42)
-    pts = rng.random((n, 3))
-    weights = rng.standard_normal((n, nrhs))
-    kp = KernelParams(KernelType.LinearRbf)
+    pts = rng.random((100_000, 3))
+    return pts, torch.as_tensor(rng.standard_normal((pts.shape[0], 8)), device=dev), rng
+
+
+def config2_tree(frt, pts, dev):
+    """Config 2's tree over ``pts`` (LinearRbf, p = 5, uniform, ACA at
+    1e-5), its sources prepared as the target set "src"; under the active
+    mesh, if any."""
+    from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
+    from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType
+
+    p = 5
     params = frt.FmmParams(interpolation_order=p, max_points_per_cell=256,
                            compression_type=frt.FmmCompressionType.ACA, epsilon=10.0**-p)
-    t0 = time.perf_counter()
-    tree = FmmTree(pts, p, kp, adaptive_tree=False, sparse=True, params=params, device=dev)
+    tree = FmmTree(pts, p, KernelParams(KernelType.LinearRbf), adaptive_tree=False, sparse=True,
+                   params=params, device=dev)
     tree.prepare_targets(pts, "src")
+    return tree
+
+
+def phase_config2(frt, nf, dev):
+    from ferreus_rbf_tpu_torch.ops.dense import dense_matvec
+    from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType, make_kernel
+
+    pts, w, rng = config2_data(dev)
+    n, nrhs = w.shape
+    kp = KernelParams(KernelType.LinearRbf)
+    t0 = time.perf_counter()
+    tree = config2_tree(frt, pts, dev)
     torch.cuda.synchronize()
     log(f"phase 3: config-2 plan {time.perf_counter() - t0:.2f} s "
         f"(leaves {tree.nsl}, smax {tree.smax}, depth {tree.tree.depth})")
-    w = torch.as_tensor(weights, device=dev)
     idx = torch.as_tensor(np.sort(rng.choice(n, 1024, replace=False)), device=dev)
     pts_d = torch.as_tensor(pts, device=dev)
     oracle = dense_matvec(make_kernel(kp), pts_d[idx], pts_d, w)
@@ -906,13 +925,12 @@ def fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit):
         raise AssertionError(f"fused {fused_fit['residual']}, host loop {host_fit['residual']}")
     if not (apart <= bound and all(same) and cycle_same):
         raise AssertionError(f"fused vs host loop {apart:.3e}, repeat {same}, cycle {cycle_same}")
-    return host
 
 
 def phase_albatite(frt, nf, timing, dev):
-    """The fit path. Returns the fit, the dataset's extents and span, the
+    """The fit path. Returns the fit, the dataset's extents and span and the
     H1/H2/H3 kernel-line entries (launches of H3 are filled in by the
-    isosurface phase) and the host-loop fit."""
+    isosurface phase)."""
     from ferreus_rbf_tpu_torch.ops.fmm import api
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
 
@@ -959,7 +977,7 @@ def phase_albatite(frt, nf, timing, dev):
             f"64^3 evaluate_with_gradients twice: values {np.max(np.abs(gv2 - gv)):.3e}, "
             f"gradients {np.max(np.abs(gg2 - gg)):.3e} apart, not bitwise equal")
     del gv2, gg2
-    host = fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit)
+    fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit)
 
     done = [e for e in tracer.events if e["event"] == "solve_done"]
     solver_res = done[-1]["residual"]
@@ -1027,7 +1045,7 @@ def phase_albatite(frt, nf, timing, dev):
                             settings.kernel_params(), 1, g, grad=grad)
         log_near_field("phase 4: albatite", name, r)
         entries[name] = kernel_entry(name, launches[name], r["p2p"])
-    return rbfi, pts, span, entries, host
+    return rbfi, pts, span, entries
 
 
 def phase_config2_gradients(nf, dev):
@@ -1659,9 +1677,9 @@ def albatite_data(frt):
     return pts, vals, span, settings
 
 
-def shard_rank(rank, world, backend, refs_path):
+def shard_rank(rank, world, backend):
     """One rank of phase 10 (its steps are in :func:`phase_sharded`); writes
-    ``rank<r>.json`` beside ``refs_path``."""
+    ``rank<r>.json`` to ``SHARD_DIR``."""
     import datetime
 
     import torch.distributed as dist
@@ -1671,7 +1689,6 @@ def shard_rank(rank, world, backend, refs_path):
     from ferreus_rbf_tpu_torch import parallel
     from ferreus_rbf_tpu_torch.ops.fmm import near_field as nf
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
-    from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType
     from ferreus_rbf_tpu_torch.solver import ddm as ddm_mod
     from ferreus_rbf_tpu_torch.utils import timing
 
@@ -1695,33 +1712,37 @@ def shard_rank(rank, world, backend, refs_path):
             rec[f"{tag}_{prec}"] = {"one_rank": bool(torch.equal(v, want)),
                                     "every_rank": same_on_every_rank(v, host_group),
                                     "finite": bool(torch.isfinite(v).all())}
-        rec[f"{tag}_shares"] = sharded.shares(key)
+        rec[f"{tag}_shares"] = sharded.shares(key, weights.shape[1])
 
     # (a) config 2's matvec (phase 3's tree)
     torch.cuda.reset_peak_memory_stats(dev)
-    n, nrhs, p = 100_000, 8, 5
-    rng = np.random.default_rng(42)
-    pts = rng.random((n, 3))
-    w = torch.as_tensor(rng.standard_normal((n, nrhs)), device=dev)
-    params = frt.FmmParams(interpolation_order=p, max_points_per_cell=256,
-                           compression_type=frt.FmmCompressionType.ACA, epsilon=10.0**-p)
-    kp = KernelParams(KernelType.LinearRbf)
+    pts, w, _ = config2_data(dev)
     trees = []
     for mesh_or_none in (None, mesh):
         with parallel.use_mesh(mesh_or_none) if mesh_or_none else contextlib.nullcontext():
-            tree = FmmTree(pts, p, kp, adaptive_tree=False, sparse=True, params=params,
-                           device=dev)
-        tree.prepare_targets(pts, "src")
-        trees.append(tree)
+            trees.append(config2_tree(frt, pts, dev))
     matvecs(*trees, w, "src", "config2")
     rec["config2_ms"] = {prec: synced_median(lambda: trees[1].evaluate_device(w, "src", prec))
                          * 1e3 for prec in ("f32", "f64")}
     rec["config2_peak_gb"] = round(torch.cuda.max_memory_allocated(dev) / 1e9, 4)
     del trees, w
 
-    # (b) the albatite fit under the mesh, fused and on the host loop
+    # (b) the albatite fit under the mesh, fused and on the host loop, against
+    # one-rank fits made here, in ranks whose host thread pools are this
+    # rank's (the host plans' BLAS rounds by its thread count)
     pts, vals, _, settings = albatite_data(frt)
-    refs = np.load(refs_path)
+    for path in ("fused", "host")[rank::world]:
+        if path == "host":
+            os.environ[FUSED_ENV] = "0"
+        try:
+            c = frt.RBFInterpolator(pts, vals, settings, device=dev).coefficients
+        finally:
+            os.environ.pop(FUSED_ENV, None)
+        np.savez(os.path.join(SHARD_DIR, f"ref_{path}.npz"),
+                 **{part: coefficient_array(c, part) for part in ("point", "poly")})
+    dist.barrier(group=host_group)
+    refs = {path: np.load(os.path.join(SHARD_DIR, f"ref_{path}.npz"))
+            for path in ("fused", "host")}
     kept = []
     init = ddm_mod.DDMTree.__init__
 
@@ -1755,7 +1776,7 @@ def shard_rank(rank, world, backend, refs_path):
             "fit_s": round(fit_s, 4),
             "solve_column_s": round(tracer.totals.get("solve_column", 0.0), 4),
             "stages_s": {k: round(v, 3) for k, v in tracer.totals.items()},
-            "one_rank": [bool(np.array_equal(coefficient_array(c, part), refs[f"{path}_{part}"]))
+            "one_rank": [bool(np.array_equal(coefficient_array(c, part), refs[path][part]))
                          for part in ("point", "poly")],
             "residual": ev["solve_done"]["residual"] if "solve_done" in ev else None,
             "fused_solve": ev.get("fused_solve"),
@@ -1797,14 +1818,32 @@ def shard_rank(rank, world, backend, refs_path):
     dist.destroy_process_group()
 
 
+# the thread pools a rank sizes from the environment: torch's, and numpy's
+# BLAS under the host plans (the M2L operators' QR and SVD)
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
 def run_ranks(fn, world, args, limit_s):
     """Start ``world`` ranks of ``fn(rank, world, *args)`` with the spawn
     method and wait for them; a rank that fails or runs past ``limit_s``
-    fails the run, and no rank outlives it."""
+    fails the run, and no rank outlives it. The ranks share the host's
+    cores: each sizes its thread pools to cores // world (at least 1), as
+    ``torchrun`` sets ``OMP_NUM_THREADS``, so eight ranks' pools do not
+    oversubscribe the cores."""
     import torch.multiprocessing as tmp
 
-    ctx = tmp.start_processes(fn, args=(world, *args), nprocs=world, join=False,
-                              start_method="spawn")
+    threads = str(max(1, len(os.sched_getaffinity(0)) // world))
+    saved = {k: os.environ.get(k) for k in THREAD_VARS}
+    os.environ.update({k: threads for k in THREAD_VARS})
+    try:
+        ctx = tmp.start_processes(fn, args=(world, *args), nprocs=world, join=False,
+                                  start_method="spawn")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
     deadline = time.monotonic() + limit_s
     try:
         while not ctx.join(timeout=1):  # raises when a rank fails
@@ -1817,33 +1856,32 @@ def run_ranks(fn, world, args, limit_s):
                 proc.join()
 
 
-def phase_sharded(dev, refs, config2_ms=None):
-    """Phase 10, the sharded path on the card: ``min(4, cards)`` ranks over
-    NCCL with two or more cards, else two ranks sharing ``cuda:0`` over
+def phase_sharded(config2_ms=None):
+    """Phase 10, the sharded path on the card: ``min(8, cards)`` ranks over
+    NCCL with two or more cards, else eight ranks sharing ``cuda:0`` over
     gloo. Under ``parallel.use_mesh`` they drive (a) config 2's matvec
     (phase 3's tree) at f32 and f64, bit for bit a one-rank matvec of the
     same tree and the same on every rank, timed per rank (median of 5);
     (b) the albatite fit on the fused path and with
     ``FERREUS_RBF_TPU_FUSED=0``, each converged with coefficients bit for
-    bit ``refs`` (the one-rank fits on the same paths: phase 4's); (c) the
+    bit a one-rank fit on the same path, made in one of the ranks (ranks
+    share the host's cores, see :func:`run_ranks`, and a host plan's BLAS
+    rounds by its thread count); (c) the
     albatite tree with the gate forced: f32 and f64 bit for bit one rank,
     H4 launched on every rank. Logs each rank's launches of H1, H2 and H4,
-    its share of leaves, M2L slots, rows and Schwarz domains, its factor
-    bytes and its peak device memory."""
+    its share of leaves, M2L slots, L2P rows, near-field rows and Schwarz
+    domains, its factor bytes and its peak device memory."""
     cards = torch.cuda.device_count()
-    world, backend = (min(4, cards), "nccl") if cards >= 2 else (2, "gloo")
+    world, backend = (min(8, cards), "nccl") if cards >= 2 else (8, "gloo")
     t0 = time.perf_counter()
     os.makedirs(SHARD_DIR, exist_ok=True)
     for name in os.listdir(SHARD_DIR):
         os.remove(os.path.join(SHARD_DIR, name))
-    refs_path = os.path.join(SHARD_DIR, "refs.npz")
-    np.savez(refs_path, **{f"{k}_{part}": coefficient_array(c, part)
-                           for k, c in refs.items() for part in ("point", "poly")})
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"phase 10: {world} ranks over {backend} on {cards} card(s) "
         f"({'one card per rank' if backend == 'nccl' else 'every rank on cuda:0'})")
-    run_ranks(shard_rank, world, (backend, refs_path), 2 * SHARD_TIMEOUT_S)
+    run_ranks(shard_rank, world, (backend,), 2 * SHARD_TIMEOUT_S)
     recs = []
     for r in range(world):
         with open(os.path.join(SHARD_DIR, f"rank{r}.json")) as fh:
@@ -1891,7 +1929,7 @@ def phase_sharded(dev, refs, config2_ms=None):
         raise AssertionError(f"a sharded albatite fit did not converge: {lead}")
     if lead["fused"]["fused_system"] is None or not lead["fused"]["fused_system"]["ok"]:
         raise AssertionError("the sharded fused fit did not take the fused path")
-    for part in ("leaves", "m2l_slots", "rows"):
+    for part in ("leaves", "m2l_slots", "l2p_rows", "rows"):
         if sum(rec["config2_shares"][part][0] for rec in recs) != recs[0]["config2_shares"][part][1]:
             raise AssertionError(f"config-2 {part}: the ranks' shares do not cover the pass")
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
@@ -2226,7 +2264,7 @@ def main():
         phase_kernels(nf, kt_mod, dev, d)
         phase_kernels_cells(nf, kt_mod, dev, d)
     config2_ms = phase_config2(frt, nf, dev)
-    rbfi, pts, span, entries, host = phase_albatite(frt, nf, timing, dev)
+    rbfi, pts, span, entries = phase_albatite(frt, nf, timing, dev)
     phase_config2_gradients(nf, dev)
     iso_launches = phase_isosurface(frt, nf, timing, rbfi, pts, span)
     entries["near_field_grad_f64"]["launches"] = iso_launches["near_field_grad_f64"]
@@ -2235,8 +2273,8 @@ def main():
     phase_dims(frt, nf, timing, dev)
     phase_examples(nf, dev)
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
-    phase_sharded(dev, {"fused": rbfi.coefficients, "host": host.coefficients}, config2_ms)
-    del rbfi, host
+    phase_sharded(config2_ms)
+    del rbfi
     rbfi4 = phase_config4(frt, nf, timing, dev)
     entries.update(phase_gate(nf, dev, rbfi4))
     log(f"all eleven phases in {time.perf_counter() - t_start:.1f} s (kernel build "

@@ -3,6 +3,7 @@
 
     python3 config4_fit.py                         # the package beside this script
     cd <other tree> && python3 <this script>       # the package of the working directory
+    python3 config4_fit.py albatite                # phase 4's albatite fit instead
 
 On one CUDA card, for the ``ferreus_rbf_tpu_torch`` package found in the
 working directory, it fits ``chip_smoke.py``'s phase-7 data (config 4: the
@@ -19,7 +20,9 @@ Schwarz level the restricted f32 matvec and the level's domain solves
 calls ended by ``torch.cuda.synchronize()``, and profiles one call of each
 level's solves (``torch.profiler``: the ops with the most device time,
 with their counts). Run it on two trees in one
-call (parent, change, change, parent) to compare them on one card.
+call (parent, change, change, parent) to compare them on one card. With
+the argument ``albatite`` it fits ``chip_smoke.py``'s phase-4 data (the
+35,801 albatite points, Spheroidal5, default ``Params``) the same way.
 """
 
 import hashlib
@@ -57,8 +60,14 @@ def main():
     nf.build()
     dev = torch.device("cuda", 0)
     torch.cuda.init()  # the allocator's peak counters exist after this
-    pts, sd = smoke.synthetic_sd(1_000_000, seed=11)
-    settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
+    data = sys.argv[1] if len(sys.argv) > 1 else "config4"
+    if data == "albatite":
+        pts, sd, _, settings = smoke.albatite_data(frt)
+    elif data == "config4":
+        pts, sd = smoke.synthetic_sd(1_000_000, seed=11)
+        settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
+    else:
+        raise SystemExit(f"config4_fit.py takes no argument or 'albatite', got {data!r}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     tracer = timing.enable_global_tracer()
@@ -120,7 +129,7 @@ def main():
             "domains": sum(b["pts_idx"].shape[0] for b in system.ddm_tree.levels[i].buckets),
             "top_device_us": rows[:8]}
     print(json.dumps({
-        "card": card, "package": package, "fit_s": fit_s,
+        "card": card, "package": package, "data": data, "fit_s": fit_s,
         "solve_column_s": tracer.totals.get("solve_column"),
         "stages_s": tracer.totals,
         "residual": done["residual"], "converged": done["converged"],

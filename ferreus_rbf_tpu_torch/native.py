@@ -20,7 +20,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["build", "build_interaction_lists", "enabled"]
+__all__ = ["build", "build_interaction_lists", "enabled", "native_available"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_PKG_DIR, "csrc", "treebuild.cpp")
@@ -35,6 +35,19 @@ def enabled() -> bool:
     """Whether tree builds take the native lists (``FERREUS_RBF_TPU_NATIVE``
     is not ``0``)."""
     return os.environ.get("FERREUS_RBF_TPU_NATIVE", "1") != "0"
+
+
+def native_available() -> bool:
+    """Whether tree builds take the native lists here: the native list
+    builder is enabled and its library builds and loads (a failed build is
+    reported as False; tree builds still raise on it)."""
+    if not enabled():
+        return False
+    try:
+        build()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def build() -> ctypes.CDLL:

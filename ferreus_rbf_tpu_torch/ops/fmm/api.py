@@ -43,11 +43,14 @@ run on the CPU (the kernels' plain versions).
 
 A tree built under ``parallel.use_mesh`` keeps the mesh, and its
 ``evaluate_device`` shares the P2M (blocks of leaves), the M2L (blocks of
-target slots) and the leaf pass (blocks of target rows: L2P, P2P, M2P)
-out over the ranks, each joined by one all-reduce; the M2M, P2L and L2L
-and every other entry point stay replicated, as in the JAX package. Every
-pass, sharded or not, walks the same pieces (``parallel.pieces``), so a
-sharded matvec gives one rank's bits.
+target slots) and the leaf pass (L2P over blocks of target rows, the near
+field's P2P and M2P over target rows) out over the ranks, each pass joined
+by one all-reduce; the M2M, P2L and L2L and every other entry point stay
+replicated, as in the JAX package. Every batched pass, sharded or not,
+walks the same pieces (``parallel.pieces``, each pass's block count set by
+its size), and the near field computes each row from that row's own work
+items however the rows are split, so a sharded matvec gives one rank's
+bits.
 """
 
 from __future__ import annotations
@@ -77,6 +80,18 @@ _PRECISIONS = {"f32": torch.float32, "f64": torch.float64}
 # 1M points resident (a 10.5 GB P2M table, ~43 GB peak with the f32
 # copies) and bounds what a larger tree keeps on an 80 GB card.
 _WEIGHT_TABLE_BYTES = 12e9
+
+# Fewest items in a block of a sharded P2M or L2P with resident weights
+# (``parallel.pass_blocks``): a pass of fewer than twice as many is one
+# block. One card walks every block, and each block of these passes is a
+# call of its own: 16 blocks cost the 1M f32 matvec +0.7%, blocks of at
+# least 2048 (7 and 8 there) +0.3%, and split no worse over 4 or 8 ranks;
+# the small passes (config 2, albatite) stay whole (PERF.md,
+# pieces_price.py). The M2L, and these passes when their weights are made
+# per chunk, cut their blocks at their own chunks' bounds, where blocks
+# cost one card nothing: they take ``parallel.BLOCKS`` blocks.
+_MIN_BLOCK_LEAVES = 2048  # P2M leaves
+_MIN_BLOCK_ROWS = 2048  # L2P target rows
 
 
 class KernelDoesNotSupportGradientsError(ValueError):
@@ -589,9 +604,8 @@ class FmmTree:
         resident = "p2m_w" in fs
         # weights per chunk are made in f64 and rounded to the pass's dtype,
         # as the resident table's f32 copy is: both paths give the same sums
-        step = None if resident else self._chunk(self.smax * self.nnodes)
         p2m = sharding.share_buffer(wt, (self.nsl, nr, self.nnodes), mesh)
-        for _, l0, l1 in sharding.pieces([self.nsl], mesh, [step]):
+        for _, l0, l1 in self._p2m_pieces(resident, mesh):
             sl = slice(l0, l1)
             if resident:
                 w = fs["p2m_w"][sl]
@@ -624,15 +638,13 @@ class FmmTree:
         ncells = self.tree.num_cells
         nn = self.nnodes
         nr = mult.shape[2]
-        budget = (1 << 24) * max(int(self.params.eval_chunk_size), 1) // 1024
         levels = self._dev["m2l_levels"]
-        sizes = [src_tab.shape[1] for src_tab, _, _ in levels]
-        steps = [max(1, budget // (src_tab.shape[0] * nn * nr)) for src_tab, _, _ in levels]
+        sizes, plan = self._m2l_pieces(nr, mesh)
         offsets = np.concatenate([[0], np.cumsum(sizes)])
         m2l = sharding.share_buffer(mult, (int(offsets[-1]), nn, nr), mesh)  # slots end to end
         mult_pad = torch.cat([mult, mult.new_zeros((1, nn, nr))])
         src_level = None
-        for li, c0, c1 in sharding.pieces(sizes, mesh, steps):
+        for li, c0, c1 in plan:
             (u, vt), (src_tab, src_cells, _) = fs["m2l"][li], levels[li]
             if li != src_level:  # the level's sources once, + zero row
                 src_level, mult_src = li, mult_pad[src_cells]
@@ -666,9 +678,7 @@ class FmmTree:
         vals = sharding.share_buffer(local, (rows, t, nr), mesh)
         grads = sharding.share_buffer(local, (rows, t, d, nr), mesh) if with_grads else None
         # per-chunk weights are made in f64 and rounded to the pass's dtype
-        step = None if binned["l2p_resident"] else self._chunk(
-            t * self.nnodes * (1 + (d if with_grads else 0)))
-        for _, r0, r1 in sharding.pieces([rows], mesh, [step]):
+        for _, r0, r1 in self._l2p_pieces(binned, with_grads, mesh):
             sl = slice(r0, r1)
             loc = local[binned["tcells"][sl]]  # (c, p^d, r)
             if binned["l2p_resident"]:
@@ -684,16 +694,47 @@ class FmmTree:
                 torch.bmm(dw.flatten(1, 2), loc, out=grads[sl].view(-1, t * d, nr))
         return (vals, grads) if with_grads else vals
 
+    def _p2m_pieces(self, resident, mesh):
+        """The P2M's pieces of leaves on this rank (``parallel.pieces``):
+        chunks of leaves when the weights are made per chunk."""
+        if resident:
+            return sharding.pieces([self.nsl], mesh, None,
+                                   sharding.pass_blocks(self.nsl, _MIN_BLOCK_LEAVES))
+        return sharding.pieces([self.nsl], mesh, [self._chunk(self.smax * self.nnodes)])
+
+    def _m2l_pieces(self, nr, mesh):
+        """(slots per level, this rank's pieces of them): each level cut
+        into chunks whose gathered sources stay within the budget."""
+        budget = (1 << 24) * max(int(self.params.eval_chunk_size), 1) // 1024
+        levels = self._dev["m2l_levels"]
+        sizes = [src_tab.shape[1] for src_tab, _, _ in levels]
+        steps = [max(1, budget // (src_tab.shape[0] * self.nnodes * nr))
+                 for src_tab, _, _ in levels]
+        return sizes, sharding.pieces(sizes, mesh, steps)
+
+    def _l2p_pieces(self, binned, with_grads, mesh):
+        """The L2P's pieces of target rows on this rank: chunks of rows when
+        the weights are made per chunk."""
+        rows, t = binned["tcnt"].shape[0], binned[torch.float64]["tpts"].shape[1]
+        if binned["l2p_resident"]:
+            return sharding.pieces([rows], mesh, None, sharding.pass_blocks(rows, _MIN_BLOCK_ROWS))
+        d = self.d if with_grads else 0
+        return sharding.pieces([rows], mesh, [self._chunk(t * self.nnodes * (1 + d))])
+
     def _rank_rows(self, binned, mesh):
-        """This rank's contiguous rows of a binned target set and their
-        near-field tables: (lo, hi, nbr, tcnt, wtab, wcnt). Under a sharded
-        ``mesh`` the slices are made once per target set and kept, so the
-        work lists kept on them (``nbr._work_items``) are built once."""
+        """This rank's contiguous rows of a binned target set for the near
+        field, and their tables: (lo, hi, nbr, tcnt, wtab, wcnt). The near
+        field computes each row from that row's own work items whatever
+        rows a call holds, so the rows are split evenly over the ranks, one
+        block each. Under a sharded ``mesh`` the slices are made once per
+        target set and kept, so the work lists kept on them
+        (``nbr._work_items``) are built once."""
         if not sharding.sharded(mesh):
             return (0, binned["tcnt"].shape[0], binned["nbr"], binned["tcnt"], binned["wtab"],
                     binned["wcnt"])
         if "rank_rows" not in binned:
-            lo, hi = sharding.rank_range(binned["tcnt"].shape[0], mesh)
+            mine = sharding.rank_blocks(binned["tcnt"].shape[0], mesh)
+            lo, hi = mine.start, mine.stop
             wtab = binned["wtab"]
             binned["rank_rows"] = (
                 lo, hi, binned["nbr"][:, lo:hi].contiguous(), binned["tcnt"][lo:hi],
@@ -703,37 +744,46 @@ class FmmTree:
 
     def _leaf(self, binned, dtype, fs, local, mult, wt, mesh=None):
         """L2P + near field (P2P, M2P) at a binned target set -> (n, nrhs);
-        under a sharded ``mesh`` each rank runs its rows and one all-reduce
-        joins them before the un-bucketing."""
+        under a sharded ``mesh`` each rank runs its L2P pieces and its near
+        field rows, and one all-reduce joins them before the un-bucketing.
+        A row's near field is summed first and added to its L2P value once:
+        where the L2P and the near field of a row fall to two ranks, the
+        all-reduce adds the very two numbers that one rank adds."""
         bs = self._binned_floats(binned, dtype)
         nr = local.shape[2]
         vals = self._l2p(binned, fs, local, mesh=mesh)  # (rows, T, r)
         lo, hi, nbr, tcnt, wtab, wcnt = self._rank_rows(binned, mesh)
         if hi > lo:
-            tpts, mine = bs["tpts"][lo:hi], vals[lo:hi]
-            mine += near_field(tpts, fs["src_tiles"], wt, nbr, kparams=self.kernel_params,
-                               tcnt=tcnt, scnt=self._dev["src_scnt"])
+            tpts = bs["tpts"][lo:hi]
+            near = near_field(tpts, fs["src_tiles"], wt, nbr, kparams=self.kernel_params,
+                              tcnt=tcnt, scnt=self._dev["src_scnt"])
             if wtab is not None and self._m2p_tiles_gated:
-                mine += near_field_cells(tpts, wtab, wcnt, *self._cell_geometry(), mult,
+                near += near_field_cells(tpts, wtab, wcnt, *self._cell_geometry(), mult,
                                          kparams=self.kernel_params, tcnt=tcnt)
             elif wtab is not None:
-                mine += near_field(tpts, fs["node_tiles"], self._m2p_tiles(mult), wtab, wcnt,
+                near += near_field(tpts, fs["node_tiles"], self._m2p_tiles(mult), wtab, wcnt,
                                    kparams=self.kernel_params, tcnt=tcnt)
+            vals[lo:hi].add_(near)
         sharding.all_reduce_sum(vals, mesh)
         return vals.reshape(-1, nr)[binned["inv_flat"]]
 
-    def shares(self, reuse_key) -> dict:
-        """This rank's share of a sharded ``evaluate_device`` at a prepared
-        target set: (owned, total) leaves of the P2M, target slots of the
-        M2L and target rows of the leaf pass."""
-        rows = self._target_cache[reuse_key]["tcnt"].shape[0]
-        slots = sum(src_tab.shape[1] for src_tab, _, _ in self._dev["m2l_levels"])
+    def shares(self, reuse_key, nrhs: int = 1) -> dict:
+        """This rank's share of a sharded ``evaluate_device`` of ``nrhs``
+        columns at a prepared target set: (owned, total) leaves of the P2M,
+        target slots of the M2L, target rows of the L2P and target rows of
+        the near field."""
+        binned = self._target_cache[reuse_key]
+        sizes, m2l = self._m2l_pieces(nrhs, self.mesh)
+        lo, hi = self._rank_rows(binned, self.mesh)[:2]
+        rows = binned["tcnt"].shape[0]
 
-        def owned(n):
-            lo, hi = sharding.rank_range(n, self.mesh)
-            return (hi - lo, n)
+        def owned(plan, total):
+            return (sum(b - a for _, a, b in plan), int(total))
 
-        return {"leaves": owned(self.nsl), "m2l_slots": owned(slots), "rows": owned(rows)}
+        return {"leaves": owned(self._p2m_pieces("p2m_w" in self._floats64, self.mesh), self.nsl),
+                "m2l_slots": owned(m2l, sum(sizes)),
+                "l2p_rows": owned(self._l2p_pieces(binned, False, self.mesh), rows),
+                "rows": (hi - lo, rows)}
 
     def _cell_geometry(self):
         """(centres, lengths, reference nodes), float64, for the gated M2P."""

@@ -303,3 +303,8 @@ def make_kernel(params: KernelParams, xp=torch, dtype=None) -> Kernel:
     else:
         raise ValueError(f"Unknown kernel type {kt}")
     return Kernel(phi, grad, xp, dtype)
+
+
+def kernel_phi(r, params: KernelParams, xp=torch):
+    """phi(r) of the configured kernel at distances ``r`` (float64)."""
+    return make_kernel(params, xp).phi(r)

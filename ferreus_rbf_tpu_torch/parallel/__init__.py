@@ -5,10 +5,11 @@ per rank instead of a ``jax.sharding`` mesh. Every rank builds the same
 host plan; the ``"sp"`` axis shares out
 
 * the FMM matvec (``FmmTree.evaluate_device``): P2M over blocks of leaves,
-  M2L over blocks of target slots, the leaf pass (L2P, P2P, M2P) over
-  blocks of target rows, each joined by one all-reduce;
+  M2L over blocks of target slots, L2P over blocks of target rows, the
+  near field (P2P, M2P) over target rows, each pass joined by one
+  all-reduce (the L2P and the near field share one);
 * the Schwarz leaf buckets (``DDMTree``): each rank factors and solves its
-  blocks of domains (blocks of at least 2,048), joined by one all-reduce
+  blocks of domains (blocks of at least 4,096), joined by one all-reduce
   per level application.
 
 The M2M, P2L, L2L, the coarse solve, the FGMRES arithmetic and every
@@ -26,6 +27,7 @@ from .sharding import (
     active_mesh,
     all_reduce_sum,
     make_mesh,
+    pass_blocks,
     pieces,
     rank0_first,
     rank_blocks,
@@ -42,6 +44,7 @@ __all__ = [
     "active_mesh",
     "all_reduce_sum",
     "make_mesh",
+    "pass_blocks",
     "pieces",
     "rank0_first",
     "rank_blocks",

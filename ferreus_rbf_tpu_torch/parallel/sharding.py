@@ -7,20 +7,25 @@ same host plan from the same points, each rank computes its own share of
 the items of a pass (leaves, target slots, target rows, Schwarz domains)
 into a zero buffer, and one explicit ``torch.distributed`` all-reduce joins
 the shares. Each item of a pass belongs to exactly one rank, so the sum
-adds zeros to a single contribution and is exact.
+adds zeros to a single contribution and is exact (the leaf pass's row may
+take its L2P value from one rank and its near field, summed first, from
+another: the all-reduce then adds the very two numbers one rank adds).
 
 Bit for bit against one rank: a batched cuBLAS call may pick another
 algorithm for another batch count, so a pass is cut into pieces that do
-not depend on the world size (:func:`pieces`): at most ``BLOCKS`` blocks
-over the pass's items (fewer where a pass's batches would be too small to
-fill the card), cut again at group boundaries and at the pass's own
-chunk size. One rank walks every piece; ``n`` ranks each walk their own
-contiguous run of blocks (:func:`rank_blocks`) and make the very calls
-that one rank makes for them.
+not depend on the world size (:func:`pieces`): blocks over the pass's
+items, as many as the pass's size gives (:func:`pass_blocks`: blocks of
+at least a minimum that the pass sets, at most ``BLOCKS``), cut again at
+group boundaries and at the pass's own chunk size. One rank walks every
+piece; ``n`` ranks each walk their own contiguous run of blocks
+(:func:`rank_blocks`) and make the very calls that one rank makes for
+them. A rank past a pass's blocks owns nothing of it and adds zeros to
+its all-reduce.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import os
 
@@ -28,11 +33,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# Blocks a pass is cut into, and so the most ranks of an "sp" axis:
-# make_mesh refuses more, since a rank without a block would own nothing.
-# One rank walks them all, so each block costs a one-card matvec a few
-# launches (PERF.md has the one-card price of 4 and of 8 blocks).
-BLOCKS = 4
+# The most blocks a pass is cut into, and so the most ranks of an "sp"
+# axis (the largest mesh of the JAX package's scaling curve): make_mesh
+# refuses more, since a rank past every pass's blocks would own nothing.
+# A pass takes fewer blocks where its batches would be too small to fill
+# the card (pass_blocks), so a large pass splits up to 16 ways and a small
+# one costs one card no extra launches (PERF.md has the one-card price).
+BLOCKS = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +105,8 @@ def make_mesh(n_devices: int | None = None, axis_names=("sp",), *, device_type="
     module shards over ``"rhs"`` either (only its root dry run places one
     RHS block over that axis by hand): ranks that differ only in another
     axis compute the same shares. The ``"sp"`` axis holds at most
-    ``BLOCKS`` ranks (a pass is cut into that many blocks, so a further
-    rank would own nothing): a larger one raises ``ValueError``.
+    ``BLOCKS`` ranks (no pass is cut into more blocks, so a further rank
+    would own nothing): a larger one raises ``ValueError``.
     """
     if device_type == "cpu":
         if backend not in (None, "gloo"):
@@ -131,8 +138,7 @@ def make_mesh(n_devices: int | None = None, axis_names=("sp",), *, device_type="
     shape = _mesh_shape(world, names)
     if "sp" in names and shape[names.index("sp")] > BLOCKS:
         raise ValueError(f"the 'sp' axis of a {world}-rank mesh {dict(zip(names, shape))} "
-                         f"exceeds {BLOCKS} ranks, the most that a pass's {BLOCKS} blocks "
-                         f"can share out")
+                         f"exceeds {BLOCKS} ranks, the most blocks that a pass is cut into")
 
     if device_type == "cuda":
         cards = torch.cuda.device_count()
@@ -192,7 +198,14 @@ def rank_blocks(n_blocks: int, mesh: Mesh | None) -> range:
     return range(n_blocks * c // sp, n_blocks * (c + 1) // sp)
 
 
-def _block_bounds(total: int, blocks: int = BLOCKS) -> list:
+def pass_blocks(total: int, min_block: int) -> int:
+    """Blocks of a pass of ``total`` items: as many as hold ``min_block``
+    items each, at least 1 and at most ``BLOCKS``. It depends on the pass
+    and never on the world size."""
+    return max(1, min(BLOCKS, int(total) // max(int(min_block), 1)))
+
+
+def _block_bounds(total: int, blocks: int) -> list:
     nb = min(blocks, BLOCKS, total)
     return [total * b // nb for b in range(nb + 1)] if nb else [0]
 
@@ -205,28 +218,49 @@ def rank_range(n: int, mesh: Mesh | None, blocks: int = BLOCKS) -> tuple:
     return bounds[mine.start], bounds[mine.stop]
 
 
+def _snap(bound: int, starts: list, steps) -> int:
+    """A block bound moved to the nearest of its group's step cuts (the
+    lower on a tie); a bound on a group boundary, or in a group without a
+    step, stays."""
+    g = bisect.bisect_right(starts, bound) - 1
+    if g >= len(steps) or bound == starts[g] or steps[g] is None:
+        return bound
+    step = max(int(steps[g]), 1)
+    lower = starts[g] + (bound - starts[g]) // step * step
+    upper = min(lower + step, starts[g + 1])
+    return lower if bound - lower <= upper - bound else upper
+
+
 def pieces(sizes, mesh: Mesh | None, steps=None, blocks: int = BLOCKS) -> list:
     """This rank's pieces of a pass over groups of items, as (group, lo,
     hi) with ``lo:hi`` within the group.
 
     The groups' items are laid end to end and cut into ``blocks`` blocks
-    (at most ``BLOCKS``; :func:`rank_range`), a number the pass fixes
-    without the world size; the pieces are the rank's blocks cut again at the
-    group boundaries and, where ``steps[g]`` is not None, every
-    ``steps[g]`` items from the group's start. The cuts do not depend on
-    the world size, so one rank walks the very pieces that ``n`` ranks
-    share."""
+    (at most ``BLOCKS``), a number the pass fixes without the world size
+    (:func:`pass_blocks`); the rank takes its run of blocks
+    (:func:`rank_blocks`). The pieces are the rank's items cut at the
+    group boundaries, at every ``steps[g]`` items from a group's start
+    (where ``steps[g]`` is not None) and at the block bounds. A block bound
+    inside a group with a step moves to the nearest of that group's step
+    cuts, so there the blocks add no piece to the chunks that the pass
+    walks anyway. The cuts do not depend on the world size, so one rank
+    walks the very pieces that ``n`` ranks share."""
     steps = steps or [None] * len(sizes)
-    lo, hi = rank_range(int(sum(sizes)), mesh, blocks)
-    bounds = [b for b in _block_bounds(int(sum(sizes)), blocks) if lo <= b <= hi]
-    out, g0 = [], 0
-    for g, (size, step) in enumerate(zip(sizes, steps)):
-        cuts = {min(max(b - g0, 0), size) for b in bounds}
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + int(size))
+    cuts = set(starts)
+    for g, step in enumerate(steps):
         if step is not None:
-            cuts.update(range(0, size, max(int(step), 1)))
-        cuts = sorted(c for c in cuts | {0, size} if lo <= g0 + c <= hi)
-        out.extend((g, a, b) for a, b in zip(cuts, cuts[1:]) if b > a)
-        g0 += size
+            cuts.update(range(starts[g], starts[g + 1], max(int(step), 1)))
+    bounds = [_snap(b, starts, steps) for b in _block_bounds(starts[-1], blocks)]
+    mine = rank_blocks(len(bounds) - 1, mesh)
+    lo, hi = bounds[mine.start], bounds[mine.stop]
+    cuts = sorted(c for c in cuts | set(bounds) if lo <= c <= hi)
+    out = []
+    for a, b in zip(cuts, cuts[1:]):
+        g = bisect.bisect_right(starts, a) - 1  # the group that starts at or before a
+        out.append((g, a - starts[g], b - starts[g]))
     return out
 
 

@@ -97,8 +97,10 @@ def _factor_chunk(s_pad: int) -> int:
 # of a few hundred domains takes about as long as one of a few dozen (the
 # card is not full), so cutting such a level into blocks multiplies its
 # time on one card and saves nothing on several: a level of fewer domains
-# than twice this is one block, solved by one rank (PERF.md).
-_MIN_BLOCK_DOMAINS = 2048
+# than twice this is one block, solved by one rank. Each block is a solve
+# of its own on one card: the 1M fit's level 0 (16,384 domains) in 8
+# blocks of 2,048 took +8% over 4 of 4,096 (PERF.md).
+_MIN_BLOCK_DOMAINS = 4096
 
 
 def _factor_chunks(lo: int, hi: int, s_pad: int):
@@ -412,7 +414,7 @@ class DDMTree:
             level.buckets.append(bucket)
             self.domains += nb
         sizes = [len(plans) for _, plans in groups]
-        blocks = max(1, sum(sizes) // _MIN_BLOCK_DOMAINS)
+        blocks = sharding.pass_blocks(sum(sizes), _MIN_BLOCK_DOMAINS)
         for g, lo, hi in sharding.pieces(sizes, self.mesh, blocks=blocks):
             (s_pad, k), plans = groups[g]
             bucket = level.buckets[g]

@@ -376,6 +376,50 @@ def refined_fgmres_device(
     return x if res <= best_res else best_x
 
 
+def schwarz_ddm_solver(
+    matvec: Callable[[np.ndarray], np.ndarray],
+    rhs: np.ndarray,
+    m: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+    max_iterations: int = 100,
+    tolerance: FittingAccuracy = None,
+    callback: Optional[Progress] = None,
+) -> np.ndarray:
+    """Stationary iteration s += M(r); r = b - A s on host arrays
+    (``iterative_solvers.rs:234``); returns s, (n, 1)."""
+    tolerance = tolerance or FittingAccuracy()
+    rhs = np.asarray(rhs, np.float64).reshape(-1, 1)
+    rg = rhs.copy()
+    sg = np.zeros_like(rhs)
+    beta = _norm_host(rg, tolerance)
+    res_norm = beta
+    iteration = 0
+    if m is None:
+        return sg
+
+    while res_norm > tolerance.tolerance and iteration < max_iterations:
+        sg = sg + m(rg)
+        rg = rhs - matvec(sg)
+        res_norm = _norm_host(rg, tolerance)
+        if tolerance.tolerance_type == FittingAccuracyType.Relative:
+            res_norm /= beta
+        iteration += 1
+        emit(
+            callback,
+            SolverIteration(
+                iter=iteration,
+                residual=res_norm,
+                progress=progress_from_rel(res_norm, beta, tolerance.tolerance),
+            ),
+        )
+    return sg
+
+
+def _norm_host(r: np.ndarray, tolerance) -> float:
+    if tolerance.tolerance_type == FittingAccuracyType.Absolute:
+        return float(np.max(np.abs(r)))
+    return float(np.linalg.norm(r))
+
+
 def schwarz_ddm_solver_device(
     matvec,
     rhs,

@@ -545,25 +545,28 @@ def test_sync_inside_the_captured_cycle_raises(cuda):
     assert fs.stats["cycles"] == 1 and fs.stats["graphs"] == 0
 
 
-def _two_rank_matvecs(rank, init_file, out_dir):
-    """One of two gloo ranks sharing ``cuda:0``: the clustered tree's f32
-    and f64 matvecs, default and with the gate forced, sharded and one
-    rank of the same tree; writes ``rank<r>.npz``."""
+def _gloo_rank_matvecs(rank, world, init_file, out_dir):
+    """One of ``world`` gloo ranks sharing ``cuda:0``: the clustered tree's
+    f32 and f64 matvecs, default and with the gate forced, sharded and one
+    rank of the same tree, with the package's block minimums and with every
+    pass in ``parallel.BLOCKS`` blocks; writes ``rank<r>.npz``."""
     import datetime
     import os
 
     import torch.distributed as dist
 
     from ferreus_rbf_tpu_torch import parallel
+    from ferreus_rbf_tpu_torch.ops.fmm import api as fmm_api
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=2, timeout=datetime.timedelta(seconds=120))
-    mesh = parallel.make_mesh(2, backend="gloo")
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    mesh = parallel.make_mesh(world, backend="gloo")
     rng = np.random.default_rng(3)
     blob = rng.normal(scale=0.02, size=(2000, 3)) + 0.25
     pts = np.clip(np.concatenate([blob, rng.random((500, 3))]), 0, 1)
     params = frt.FmmParams(interpolation_order=4, max_points_per_cell=64, epsilon=1e-4)
     w = torch.as_tensor(rng.standard_normal((pts.shape[0], 2)), device=mesh.device)
+    package = (fmm_api._MIN_BLOCK_LEAVES, fmm_api._MIN_BLOCK_ROWS)
     out = {"device": str(mesh.device)}
     for gate in ("default", "0"):
         if gate == "0":
@@ -576,24 +579,30 @@ def _two_rank_matvecs(rank, init_file, out_dir):
             tree.prepare_targets(pts, "src")
             trees.append(tree)
         out[f"{gate}_gated"] = trees[1]._m2p_tiles_gated
-        for prec in ("f32", "f64"):
-            nf.reset_launches()
-            got = trees[1].evaluate_device(w, "src", prec)
-            out[f"{gate}_{prec}_h4"] = sum(v for k, v in nf.LAUNCHES.items()
-                                           if k.startswith("near_field_cells"))
-            out[f"{gate}_{prec}"] = torch.equal(got, trees[0].evaluate_device(w, "src", prec))
+        for cut, mins in (("package", package), ("split", (1, 1))):
+            fmm_api._MIN_BLOCK_LEAVES, fmm_api._MIN_BLOCK_ROWS = mins
+            for prec in ("f32", "f64"):
+                nf.reset_launches()
+                got = trees[1].evaluate_device(w, "src", prec)
+                key = f"{gate}_{cut}_{prec}"
+                out[f"{key}_h4"] = sum(v for k, v in nf.LAUNCHES.items()
+                                       if k.startswith("near_field_cells"))
+                out[key] = torch.equal(got, trees[0].evaluate_device(w, "src", prec))
+        fmm_api._MIN_BLOCK_LEAVES, fmm_api._MIN_BLOCK_ROWS = package
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
 
 
-@pytest.fixture
-def two_ranks(cuda, tmp_path):
+def _gloo_ranks(world, tmp_path):
+    """Run ``world`` gloo ranks of :func:`_gloo_rank_matvecs` on ``cuda:0``
+    and return their results."""
     import time
 
     import torch.multiprocessing as tmp
 
-    ctx = tmp.start_processes(_two_rank_matvecs, args=(str(tmp_path / "init"), str(tmp_path)),
-                              nprocs=2, join=False, start_method="spawn")
+    ctx = tmp.start_processes(_gloo_rank_matvecs,
+                              args=(world, str(tmp_path / "init"), str(tmp_path)),
+                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + 300
     try:
         while not ctx.join(timeout=1):  # raises when a rank fails
@@ -602,21 +611,44 @@ def two_ranks(cuda, tmp_path):
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+
+
+@pytest.fixture
+def two_ranks(cuda, tmp_path):
+    return _gloo_ranks(2, tmp_path)
+
+
+@pytest.fixture
+def eight_ranks(cuda, tmp_path):
+    return _gloo_ranks(8, tmp_path)
+
+
+def _check_gloo_ranks(results):
+    for out in results:
+        assert str(out["device"]) == "cuda:0"
+        for gate in ("default", "0"):
+            assert bool(out[f"{gate}_gated"]) == (gate == "0")
+            for cut in ("package", "split"):
+                for prec in ("f32", "f64"):
+                    key = f"{gate}_{cut}_{prec}"
+                    assert bool(out[key]), key
+                    assert (int(out[f"{key}_h4"]) > 0) == (gate == "0")
 
 
 def test_two_gloo_ranks_on_one_card_match_one_rank(two_ranks):
     """Two gloo ranks on ``cuda:0``: ``evaluate_device`` at f32 and f64,
     on the clustered tree and with the node-tile gate forced (M2P on H4,
     launched on each rank), bit for bit a one-rank matvec of the same
-    tree."""
-    for out in two_ranks:
-        assert str(out["device"]) == "cuda:0"
-        for gate in ("default", "0"):
-            assert bool(out[f"{gate}_gated"]) == (gate == "0")
-            for prec in ("f32", "f64"):
-                assert bool(out[f"{gate}_{prec}"]), (gate, prec)
-                assert (int(out[f"{gate}_{prec}_h4"]) > 0) == (gate == "0")
+    tree, with the package's block minimums and with every pass in 16
+    blocks (cuBLAS's batched calls on the card, one rank's pieces)."""
+    _check_gloo_ranks(two_ranks)
+
+
+def test_eight_gloo_ranks_on_one_card_match_one_rank(eight_ranks):
+    """The same with eight gloo ranks on ``cuda:0``, an eight-card host's
+    mesh on one card."""
+    _check_gloo_ranks(eight_ranks)
 
 
 # ------------------------------------------------------- d = 1 and d = 2

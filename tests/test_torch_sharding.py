@@ -85,6 +85,9 @@ def _clustered():
 
 
 FMM = dict(interpolation_order=4, max_points_per_cell=64, epsilon=1e-4)
+# the port's trees take the M2L in chunks of a few target slots (its blocks
+# are cut at its chunks' bounds), so that every rank owns some of it
+M2L_CHUNK = 8
 
 
 def _fmm_weights(n):
@@ -117,7 +120,8 @@ def _port_tree(pts, gated):
         tree = FmmTree(pts, FMM["interpolation_order"],
                        KernelParams(KernelType.Spheroidal5Rbf, base_range=1.1, total_sill=0.8),
                        adaptive_tree=True, sparse=True,
-                       params=FmmParams(compression_type=FmmCompressionType.ACA, **FMM),
+                       params=FmmParams(compression_type=FmmCompressionType.ACA,
+                                        eval_chunk_size=M2L_CHUNK, **FMM),
                        device=None if parallel.active_mesh() else "cpu")
     finally:
         os.environ.pop(GATE, None)
@@ -149,14 +153,17 @@ def _run_rank(rank, init_file, out_dir):
     ``rank<r>.npz``."""
     torch.set_num_threads(1)
     import ferreus_rbf_tpu_torch as prt
+    from ferreus_rbf_tpu_torch.ops.fmm import api as fmm_api
     from ferreus_rbf_tpu_torch.solver import ddm as ddm_mod
     from ferreus_rbf_tpu_torch.solver import fused as fused_mod
     from ferreus_rbf_tpu_torch.solver.ddm import DDMTree
     from ferreus_rbf_tpu_torch.utils import timing
 
-    # these levels hold a few dozen domains, which the package solves as one
-    # block; cut them into blocks all the same, so that every rank owns some
+    # these levels hold a few dozen domains and the tree a few hundred
+    # leaves, slots and rows, which the package keeps as one block per pass;
+    # cut them into blocks all the same, so that every rank owns some
     ddm_mod._MIN_BLOCK_DOMAINS = 1
+    fmm_api._MIN_BLOCK_LEAVES = fmm_api._MIN_BLOCK_ROWS = 1
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=WORLD, timeout=datetime.timedelta(seconds=TIMEOUT_S))
     out = {}
@@ -321,7 +328,8 @@ def test_sharded_matvec_matches_one_rank(ranks, tag, prec):
 @pytest.mark.parametrize("tag", ["mv", "gated"])
 def test_matvec_shares_are_uneven_and_cover_every_item(ranks, tag):
     """The tree has M2P and P2L, its leaves, M2L slots and rows do not
-    divide by 4, and every rank owns some of each."""
+    divide by 4, and every rank owns some of each (P2M leaves, M2L slots,
+    L2P rows, near-field rows)."""
     results, _ = ranks
     has_m2p, n_p2l = results[0][f"{tag}_m2p_p2l"]
     assert has_m2p and n_p2l > 0
@@ -403,11 +411,13 @@ def test_make_mesh_refuses_what_it_cannot_run(monkeypatch):
 
 @pytest.mark.parametrize("axis_names, world", [
     (("sp",), parallel.BLOCKS + 1),
-    (("sp",), 2 * parallel.BLOCKS),  # eight cards of one host
+    (("sp",), 2 * parallel.BLOCKS),  # four eight-card hosts
     (("rhs", "sp"), 2 * (parallel.BLOCKS + 1)),  # "sp" takes BLOCKS + 1 of them
 ])
 def test_make_mesh_refuses_an_sp_axis_past_the_blocks(monkeypatch, axis_names, world):
-    # a rank past the blocks of a pass would own no leaf, slot, row or domain
+    # no pass is cut into more than BLOCKS blocks: a further rank would own
+    # no leaf, slot, row or domain (eight ranks pass:
+    # tests/test_torch_sharding_eight.py)
     monkeypatch.setenv("WORLD_SIZE", str(world))
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(ValueError, match=f"exceeds {parallel.BLOCKS} ranks"):
