@@ -120,7 +120,18 @@ Phases (any failure raises and the script exits non-zero):
     1076 facets, ``boundary_closure``'s lines equal to the JAX example's,
     ``franke_2d``'s errors below 1e-6 and 1e-2, the albatite fits'
     printed residuals below 1e-4 of max |values|, and phase 6's checks on
-    every mesh written.
+    every mesh written;
+12. config 5's isosurface (``bench.py`` ``config5_3m_rmt``; run after
+    phase 8, once its trees are freed): ``build_isosurface`` of phase 7's
+    1M fit over [-1.4, 1.4]^3 at 0.02, its depth cut from 3M points to 1M
+    by this script's time limit (``python3 -m
+    ferreus_rbf_tpu_torch.scripts.config5_isosurface`` runs the 3M fit):
+    the time split (evaluator build, seed projection and its Newton calls,
+    lattice evaluations, host RMT), the launches and the peak device
+    memory, phase 6's checks, and the script's: a closed mesh of one
+    component with V - E + F = 2, every vertex within one lattice step of
+    the bumpy sphere, ``evaluate`` at 1,024 vertices against a dense f64
+    sum.
 
 Repeat evaluations on the card are bitwise equal (the M2M adds its octants
 in a fixed order), and the script holds them so: phase 4 runs
@@ -131,7 +142,7 @@ and downward pass, phase 9 a saved and loaded model, phase 10 every
 sharded result against one rank and phase 11 each fit against its repeat
 and the 2-D gated tree against the ungated one, each bit for bit.
 
-Phases 4-11 each zero the kernels' launch counters just before they drive
+Phases 4-12 each zero the kernels' launch counters just before they drive
 the port and read them just after (phase 10 in each rank). The line before the last is a JSON
 object with one entry per kernel: its launches on its path (phase 4 for
 H1/H2, phase 6 for H3, phase 8's gated tree for H4), its error and time
@@ -1123,37 +1134,14 @@ def mesh_checks(verts, facets, nonempty=True):
     return (int(uses.max()) if uses.size else 0), int((uses == 1).sum())
 
 
-def phase_isosurface(frt, nf, timing, rbfi, pts, span, label="phase 6"):
-    """The isosurface path: RMT on an albatite fit at span/100 (phase 6;
-    phase 9 under the trend). Returns the launches."""
-    extents = np.concatenate([pts.min(axis=0), pts.max(axis=0)])
-    resolution = span / 100.0
-    calls = {"lattice_calls": 0, "lattice_points": 0, "lattice_s": 0.0,
-             "gradient_calls": 0, "gradient_points": 0, "gradient_s": 0.0}
+def phase_isosurface(nf, rbfi, extents, resolution, label):
+    """The isosurface path: ``build_isosurface`` of a fit over ``extents`` at
+    ``resolution`` (phase 6: the albatite fit at span/100; phase 9d under
+    the trend; phase 12: config 5), timed and split by
+    ``config5_isosurface.timed_isosurface``, with the work lists built
+    counted. Returns (mesh, launches)."""
+    from ferreus_rbf_tpu_torch.scripts.config5_isosurface import timed_isosurface
 
-    def counted(fn, key):
-        def wrapper(targets):
-            calls[f"{key}_calls"] += 1
-            calls[f"{key}_points"] += len(targets)
-            t0 = time.perf_counter()
-            out = fn(targets)  # host arrays: the device work has finished
-            calls[f"{key}_s"] += time.perf_counter() - t0
-            return out
-        return wrapper
-
-    build = rbfi.build_evaluator
-
-    def timed_build(*args):
-        t0 = time.perf_counter()
-        build(*args)
-        torch.cuda.synchronize()
-        calls["build_evaluator_s"] = time.perf_counter() - t0
-
-    rbfi.build_evaluator = timed_build
-
-    rbfi.evaluate_targets = counted(rbfi.evaluate_targets, "lattice")
-    rbfi.evaluate_targets_with_gradients = counted(
-        rbfi.evaluate_targets_with_gradients, "gradient")
     builds = []
     work_items = nf.work_items
 
@@ -1161,38 +1149,59 @@ def phase_isosurface(frt, nf, timing, rbfi, pts, span, label="phase 6"):
         builds.append(1)
         return work_items(*args, **kw)
 
-    torch.cuda.synchronize()
-    nf.reset_launches()
     nf.work_items = counted_lists
-    tracer = timing.enable_global_tracer()
-    t0 = time.perf_counter()
     try:
-        mesh = rbfi.build_isosurface(extents, resolution, 0.0, frt.BoundaryClosure.None_)
-        torch.cuda.synchronize()
+        mesh, split, launches, stages = timed_isosurface(rbfi, extents, resolution)
     finally:
         nf.work_items = work_items
-    iso_s = time.perf_counter() - t0
-    timing.disable_global_tracer()
-    launches = dict(nf.LAUNCHES)
-    del rbfi.evaluate_targets, rbfi.evaluate_targets_with_gradients, rbfi.build_evaluator
-    calls = {k: round(v, 3) if isinstance(v, float) else v for k, v in calls.items()}
+    iso_s = split.pop("isosurface_s")
+    split = {k: [round(x, 3) for x in v] if k.endswith("_call_s") else
+             round(v, 3) if isinstance(v, float) else v for k, v in split.items()}
 
     verts, facets = mesh.vertices, mesh.facets
+    extents = np.asarray(extents, np.float64)
     pad = resolution * 10.0
     inside = bool(np.all(verts >= extents[:3] - pad) and np.all(verts <= extents[3:] + pad))
     most, boundary = mesh_checks(verts, facets)
-    log(f"{label}: albatite isosurface at span/100 ({resolution:.6g}) {iso_s:.3f} s: "
-        f"{mesh.num_vertices} vertices, {mesh.num_facets} facets; {json.dumps(calls)}; "
-        f"max facets per edge {most}, boundary edges {boundary}")
-    log(f"{label}: stages (s) {json.dumps({k: round(v, 3) for k, v in tracer.totals.items()})}")
-    log(f"{label}: nf_work_items {tracer.totals.get('nf_work_items', 0.0):.3f} s over "
+    log(f"{label}: isosurface at {resolution:.6g} over {extents.round(6).tolist()} "
+        f"{iso_s:.3f} s: {mesh.num_vertices} vertices, {mesh.num_facets} facets; "
+        f"{json.dumps(split)}; max facets per edge {most}, boundary edges {boundary}")
+    log(f"{label}: stages (s) {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    log(f"{label}: nf_work_items {stages.get('nf_work_items', 0.0):.3f} s over "
         f"{len(builds)} work lists built")
     log(f"{label}: launches {json.dumps(launches)}")
     if not inside:
         raise AssertionError("isosurface outside the padded extents")
     if not (launches["near_field_f64"] > 0 and launches["near_field_grad_f64"] > 0):
         raise AssertionError(f"H2 or H3 never launched in {label}: {launches}")
-    return launches
+    return mesh, launches
+
+
+def phase_config5(nf, dev, rbfi):
+    """Phase 12: config 5's isosurface (``bench.py`` ``config5_3m_rmt``) at
+    full width, over [-1.4, 1.4]^3 at 0.02, on phase 7's 1M fit: the split,
+    the launches, the peak memory and the checks of
+    ``ferreus_rbf_tpu_torch.scripts.config5_isosurface``."""
+    from ferreus_rbf_tpu_torch.scripts import config5_isosurface as c5
+
+    resolution = 0.02
+    t0 = time.perf_counter()
+    log(f"phase 12: config 5's isosurface at {resolution} over {c5.EXTENTS}; its depth cut "
+        f"from 3,000,000 to {rbfi.points.shape[0]:,} points (phase 7's fit) by the smoke's "
+        f"time limit (python3 -m ferreus_rbf_tpu_torch.scripts.config5_isosurface runs 3M)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = phase_isosurface(nf, rbfi, c5.EXTENTS, resolution, "phase 12")[0]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"phase 12: peak device memory of the isosurface {peak_gb:.3f} GB")
+    checks = c5.check_mesh(mesh.vertices, mesh.facets, resolution)
+    log(f"phase 12: closed, one component, within one lattice step of the bumpy sphere: "
+        f"{json.dumps(checks)}")
+    values = c5.check_vertex_values(rbfi, mesh.vertices,
+                                    float(np.max(np.abs(rbfi.point_values))))
+    log(f"phase 12: evaluate at {values['n']} vertices against a dense f64 sum "
+        f"{json.dumps(values)} (bound {c5.ORACLE_BOUND:.0e} of max |values|)")
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
 
 def synthetic_sd(n, seed=11):
@@ -1593,7 +1602,8 @@ def phase_trend(frt, nf, timing, dev):
     del loaded, lv, lgv, lgg
 
     # (d) the isosurface under the trend
-    phase_isosurface(frt, nf, timing, rbfi, pts, span, label="phase 9d")
+    phase_isosurface(nf, rbfi, np.concatenate([pts.min(axis=0), pts.max(axis=0)]),
+                     span / 100.0, "phase 9d")
 
     # (e) the standalone bbfmm module: the Laplacian over the albatite points
     rng = np.random.default_rng(9)
@@ -2266,7 +2276,8 @@ def main():
     config2_ms = phase_config2(frt, nf, dev)
     rbfi, pts, span, entries = phase_albatite(frt, nf, timing, dev)
     phase_config2_gradients(nf, dev)
-    iso_launches = phase_isosurface(frt, nf, timing, rbfi, pts, span)
+    extents = np.concatenate([pts.min(axis=0), pts.max(axis=0)])
+    iso_launches = phase_isosurface(nf, rbfi, extents, span / 100.0, "phase 6")[1]
     entries["near_field_grad_f64"]["launches"] = iso_launches["near_field_grad_f64"]
     phase_trend(frt, nf, timing, dev)
     t11 = time.perf_counter()
@@ -2277,7 +2288,8 @@ def main():
     del rbfi
     rbfi4 = phase_config4(frt, nf, timing, dev)
     entries.update(phase_gate(nf, dev, rbfi4))
-    log(f"all eleven phases in {time.perf_counter() - t_start:.1f} s (kernel build "
+    phase_config5(nf, dev, rbfi4)
+    log(f"all twelve phases in {time.perf_counter() - t_start:.1f} s (kernel build "
         f"{nf.BUILD_INFO['seconds']:.2f} s)")
 
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

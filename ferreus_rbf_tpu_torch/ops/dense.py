@@ -11,7 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.common import get_pointarray_extents
 from .kernels import Kernel, KernelParams, make_kernel
+
+__all__ = ["dense_matvec", "dense_matvec_with_gradients", "get_a_matrix",
+           "get_a_matrix_symmetric_solver", "get_pointarray_extents"]
 
 
 def get_a_matrix(target_points, source_points, params: KernelParams, xp=torch):

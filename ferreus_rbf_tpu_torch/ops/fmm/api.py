@@ -462,7 +462,14 @@ class FmmTree:
         if reuse_key is not None and reuse_key in self._target_cache:
             binned = self._target_cache[reuse_key]
             if with_grads and binned["l2p_resident"] and "l2p_dw" not in binned:
-                binned["l2p_dw"] = self._l2p_weights(binned, True)[1]
+                rows = binned["tcnt"].shape[0]
+                if self._l2p_fits(rows, True):
+                    binned["l2p_dw"] = self._l2p_weights(binned, True)[1]
+                else:
+                    # kept weights, derivatives past the budget: this
+                    # gradient pass makes them per chunk
+                    record_event("fmm_targets", {"targets": binned["ntargets"], "rows": rows,
+                                                 "l2p_resident": False, "kept": True})
             return binned
 
         targets = np.asarray(target_points, np.float64)
@@ -547,7 +554,7 @@ class FmmTree:
             # (rows, T, d) target rows; pad slots repeat target 0
             torch.float64: {"tpts": self._tensor((targets - self._world_center)[tgt_idx])},
             # L2P weights kept only within the budget (else per row chunk)
-            "l2p_resident": ntl * tmax * self.nnodes * 8 <= _WEIGHT_TABLE_BYTES,
+            "l2p_resident": self._l2p_fits(ntl, with_grads),
         }
         record_event("fmm_targets", {"targets": n, "rows": ntl,
                                      "l2p_resident": binned["l2p_resident"]})
@@ -561,15 +568,29 @@ class FmmTree:
             self._target_cache[reuse_key] = binned
         return binned
 
-    def _l2p_weights(self, binned, with_grads, rows=slice(None)):
+    def _l2p_fits(self, rows, with_grads) -> bool:
+        """Whether the L2P tables of ``rows`` target rows stay within
+        ``_WEIGHT_TABLE_BYTES``: the (rows, T, p^d) f64 weights and, with
+        ``with_grads``, their d derivative tables beside them."""
+        return rows * self._tmax * self.nnodes * 8 * (1 + self.d * with_grads) \
+            <= _WEIGHT_TABLE_BYTES
+
+    def _l2p_resident(self, binned, with_grads) -> bool:
+        """Whether a pass over a binned target set reads kept L2P tables
+        (the derivatives too, ``with_grads``), or makes them per chunk."""
+        return binned["l2p_resident"] and (not with_grads or "l2p_dw" in binned)
+
+    def _l2p_weights(self, binned, with_grads, rows=slice(None), values=True):
         """L2P anterpolation weights (rows, T, p^d) of a binned target set,
         and with ``with_grads`` their derivatives (rows, T, d, p^d), f64,
-        for the row slice ``rows``."""
+        for the row slice ``rows``; ``values=False`` makes the derivatives
+        only (the weights come back None)."""
         f64 = self._floats64
         tc = binned["tcells"][rows]
         return cheb.anterpolation_weights_torch(
             binned[torch.float64]["tpts"][rows], f64["cell_centers"][tc],
             f64["cell_lengths"][tc], f64["nodes_t"], self.d, with_gradients=with_grads,
+            values=values,
         )
 
     def _chunk(self, per_item: int) -> int:
@@ -681,9 +702,12 @@ class FmmTree:
         for _, r0, r1 in self._l2p_pieces(binned, with_grads, mesh):
             sl = slice(r0, r1)
             loc = local[binned["tcells"][sl]]  # (c, p^d, r)
-            if binned["l2p_resident"]:
+            if self._l2p_resident(binned, with_grads):
                 w = bs["l2p_w"][sl]
                 dw = binned["l2p_dw"][sl] if with_grads else None
+            elif binned["l2p_resident"]:  # kept weights, derivatives per chunk
+                w = bs["l2p_w"][sl]
+                dw = self._l2p_weights(binned, True, sl, values=False)[1]
             else:
                 w = self._l2p_weights(binned, with_grads, sl)
                 w, dw = w if with_grads else (w, None)
@@ -716,10 +740,11 @@ class FmmTree:
         """The L2P's pieces of target rows on this rank: chunks of rows when
         the weights are made per chunk."""
         rows, t = binned["tcnt"].shape[0], binned[torch.float64]["tpts"].shape[1]
-        if binned["l2p_resident"]:
+        if self._l2p_resident(binned, with_grads):
             return sharding.pieces([rows], mesh, None, sharding.pass_blocks(rows, _MIN_BLOCK_ROWS))
         d = self.d if with_grads else 0
-        return sharding.pieces([rows], mesh, [self._chunk(t * self.nnodes * (1 + d))])
+        made = d + (not binned["l2p_resident"])  # tables made per chunk
+        return sharding.pieces([rows], mesh, [self._chunk(t * self.nnodes * made)])
 
     def _rank_rows(self, binned, mesh):
         """This rank's contiguous rows of a binned target set for the near

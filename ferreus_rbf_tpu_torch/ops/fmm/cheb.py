@@ -177,14 +177,15 @@ def scale_nodes_to_cell(nodes_nd: np.ndarray, center, length, xp=np):
 
 
 def anterpolation_weights_torch(points, center, length, nodes_t, d: int,
-                                with_gradients: bool = False):
+                                with_gradients: bool = False, values: bool = True):
     """Tensor twin of :func:`anterpolation_weights`.
 
     ``points`` (..., n, d), ``center`` (..., d), ``length`` (...,) and
     ``nodes_t`` (p, p) are tensors on one device and of one dtype. Returns
     W (..., n, p^d), node axes flattened row-major like the numpy version;
     with ``with_gradients`` the pair ``(W, dW)``, dW (..., n, d, p^d) in
-    physical coordinates (chain-rule factor 2/length).
+    physical coordinates (chain-rule factor 2/length), and W None when
+    ``values`` is False.
     """
     p = nodes_t.shape[0]
     scaled = (points - center[..., None, :]) / (length[..., None, None] * 0.5)
@@ -211,9 +212,9 @@ def anterpolation_weights_torch(points, center, length, nodes_t, d: int,
             w = (w[..., :, None] * part[..., None, :]).flatten(-2)
         return w
 
-    w = outer(s_dim)
     if not with_gradients:
-        return w
+        return outer(s_dim)
+    w = outer(s_dim) if values else None
     dw = torch.stack([outer([ds_dim[i] if i == g else s_dim[i] for i in range(d)])
                       for g in range(d)], dim=-2)
     return w, dw

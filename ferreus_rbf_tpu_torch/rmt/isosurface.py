@@ -22,6 +22,7 @@ import numpy as np
 
 from ..isosurfacing import BoundaryClosure, ClusterMethod, Mesh
 from ..progress import IsosurfaceStage, Message, SurfacingProgress
+from ..utils.timing import traced_stage
 from . import seed_projection
 from .cleanup import clean_mesh
 from .clipping import bbox_eps, clip_mesh_to_aabb, facets_fully_inside_aabb
@@ -292,9 +293,10 @@ def build_isosurface(
                 pts, isosurface_fn, lattice
             )
 
-    seeds = seed_projection.get_unique_seed_point_ijks(
-        seed_points, grad_wrap, lattice, isovalue
-    )
+    with traced_stage("rmt_seed_projection"):
+        seeds = seed_projection.get_unique_seed_point_ijks(
+            seed_points, grad_wrap, lattice, isovalue
+        )
 
     evalmap = KeyedValues()
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .keymap import pack_ijk
+
 NITERS = 30
 TOL = 0.01
 G2_MIN = 1e-20
@@ -22,8 +24,11 @@ def get_unique_seed_point_ijks(seed_points, gradient_fn, lattice, isovalue):
         raise ValueError("seed_points must be N x 3")
 
     clamped = np.clip(pts, lattice.min_corner, lattice.max_corner)
-    cells = lattice.world_to_ijk(clamped)
-    _, first = np.unique(cells, axis=0, return_index=True)
+    # one seed per initial cell, the first in input order: a 1-D unique of
+    # the packed cell keys (a bijection of the cells) picks the same rows
+    # as a row unique of the cells (a stable sort either way), at a
+    # fraction of its cost over millions of seeds
+    _, first = np.unique(pack_ijk(lattice.world_to_ijk(clamped)), return_index=True)
     x = clamped[np.sort(first)].copy()
     if x.shape[0] == 0:
         return set()

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from ferreus_rbf_tpu_torch.ops.fmm import api as tapi
+from ferreus_rbf_tpu_torch.utils import timing
 
 # the helpers and the two autouse fixtures (no gate variable, one torch
 # thread) of the file these tests come from
@@ -57,3 +58,37 @@ def test_chunked_weights_match_resident(chunked_pair, prec, tol):
 def test_chunked_gradients_match_resident(chunked_pair):
     for got, want in zip(chunked_pair[("chunked", "grad")], chunked_pair[("resident", "grad")]):
         assert _rel(got, want) < 1e-13
+
+
+def test_gradient_tables_count_in_the_budget(monkeypatch):
+    """Fault P4: the L2P derivative tables (d times the weights) count in
+    ``_WEIGHT_TABLE_BYTES``. Under a budget that holds a target set's
+    weights but not its weights and derivatives, a gradient pass makes
+    them per chunk, whether the set is binned for it or was kept for
+    values first, and matches the resident tables within 1e-13 (at
+    config 5's 3M points the kept derivative tables ran the card out of
+    memory). A kept set's gradient pass reads its kept weights, makes the
+    derivatives per chunk and records that in an ``fmm_targets`` event."""
+    pts = _clustered()
+    targets = pts[::5]
+    w = np.random.default_rng(9).standard_normal((pts.shape[0], 2))
+    tree = _port_tree(pts, "Spheroidal5Rbf", eval_chunk_size=4)
+    tree.set_local_coefficients(w)
+    want = tree.evaluate_leaves_with_gradients(w, targets)
+    weights_bytes = tree._bin_targets(targets)["tcnt"].shape[0] * tree._tmax * tree.nnodes * 8
+    monkeypatch.setattr(tapi, "_WEIGHT_TABLE_BYTES", 2 * weights_bytes)
+    fresh = tree._bin_targets(targets, with_grads=True)
+    assert not fresh["l2p_resident"] and "l2p_dw" not in fresh
+    tree.prepare_targets(targets, "kept")
+    tracer = timing.enable_global_tracer()
+    try:
+        got_kept = tree.evaluate_leaves_with_gradients(w, targets, "kept")
+    finally:
+        timing.disable_global_tracer()
+    kept = tree._target_cache["kept"]
+    assert kept["l2p_resident"] and "l2p_dw" not in kept
+    assert [(e["l2p_resident"], e.get("kept")) for e in tracer.events
+            if e["event"] == "fmm_targets"] == [(False, True)]
+    for got in (tree.evaluate_leaves_with_gradients(w, targets), got_kept):
+        for g, v in zip(got, want):
+            assert _rel(g, v) < 1e-13

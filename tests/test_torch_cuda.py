@@ -226,6 +226,30 @@ def test_gradients_on_card_match_cpu(cuda):
         assert _rel(torch.as_tensor(got), torch.as_tensor(want)) < 1e-12
 
 
+def test_config5_isosurface_on_card_matches_cpu(cuda):
+    """Config 5 at 3,000 points (``tests/test_torch_config5.py``): the
+    port's direct fit isosurfaced over [-1.4, 1.4]^3 at 0.1 on the CPU and,
+    from the same coefficients, on the card: facets equal, vertices within
+    1e-8, H2 and H3 launched on the card."""
+    from ferreus_rbf_tpu_torch.scripts.config5_isosurface import EXTENTS
+    from ferreus_rbf_tpu_torch.scripts.fit_at_scale import synthetic_sd
+
+    pts, sd = synthetic_sd(3000)
+    settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
+    fit = frt.RBFInterpolator(pts, sd, settings, device="cpu")
+    card = frt.RBFInterpolator.from_numpy_state(
+        fit.points, fit.point_values, settings, fit.coefficients.point_coefficients,
+        fit.coefficients.poly_coefficients, fit.translation_factor, fit.scale_factor,
+        device=cuda)
+    want = fit.build_isosurface(EXTENTS, 0.1, 0.0, frt.BoundaryClosure.None_)
+    nf.reset_launches()
+    got = card.build_isosurface(EXTENTS, 0.1, 0.0, frt.BoundaryClosure.None_)
+    assert nf.LAUNCHES["near_field_f64"] > 0 and nf.LAUNCHES["near_field_grad_f64"] > 0
+    assert got.num_facets > 1000
+    np.testing.assert_array_equal(got.facets, want.facets)
+    assert np.max(np.abs(got.vertices - want.vertices)) < 1e-8
+
+
 @pytest.mark.parametrize("precision", ["f64", "f32"])
 def test_fmm_matvec_on_card_matches_cpu(cuda, precision):
     """A clustered adaptive tree (P2P, M2P and P2L all present) evaluated

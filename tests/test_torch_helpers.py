@@ -156,3 +156,35 @@ def test_native_available_matches_jax(monkeypatch):
     assert tnative.native_available() is jnative.native_available()
     monkeypatch.setenv("FERREUS_RBF_TPU_NATIVE", "0")
     assert tnative.native_available() is False
+
+
+@pytest.mark.parametrize("module, name", [
+    ("utils", "telemetry"), ("solver", "Domain"), ("ops.dense", "get_pointarray_extents")])
+def test_the_jax_names_import_from_both_packages(module, name):
+    for package in ("ferreus_rbf_tpu", "ferreus_rbf_tpu_torch"):
+        assert getattr(__import__(f"{package}.{module}", fromlist=[name]), name) is not None
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_get_pointarray_extents_matches_jax(d):
+    pts = np.random.default_rng(23).standard_normal((500, d)) * 1e3
+    want = jdense.get_pointarray_extents(pts)
+    got = tdense.get_pointarray_extents(pts)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_telemetry_is_timing():
+    from ferreus_rbf_tpu.utils import telemetry as jtelemetry
+    from ferreus_rbf_tpu_torch.solver import Domain
+    from ferreus_rbf_tpu_torch.solver.domain import Domain as DomainClass
+    from ferreus_rbf_tpu_torch.utils import telemetry, timing
+
+    assert telemetry.enable_global_tracer is timing.enable_global_tracer
+    assert all(getattr(telemetry, n) is getattr(timing, n) for n in telemetry.__all__)
+    # the JAX module's public names, but for those the port leaves out by
+    # rule (XLA traces and jit-cache sizes; see timing.py)
+    jax_names = {n for n in vars(jtelemetry) if not n.startswith("_")
+                 and callable(getattr(jtelemetry, n))
+                 and getattr(getattr(jtelemetry, n), "__module__", "") == jtelemetry.__name__}
+    assert jax_names - {"xla_trace", "compiled_program_counts"} <= set(telemetry.__all__)
+    assert Domain is DomainClass
