@@ -821,12 +821,10 @@ def kernel_entry(name, launches, m):
 FUSED_ENV = "FERREUS_RBF_TPU_FUSED"
 
 
-def solver_path(tracer, fit_s, peak_gb, messages=None):
+def solver_path(tracer, fit_s, peak_gb):
     """Which solver path a fit took, the gate that decided it and the
-    fused path's numbers, from the fit's tracer; ``messages`` are the fit's
-    progress messages (one ``SolverIteration`` per inner iteration)."""
-    from ferreus_rbf_tpu_torch.progress import SolverIteration
-
+    fused path's numbers, from the fit's tracer (``inner_iterations`` is
+    its ``fgmres_iters`` counter, on either path)."""
     ev = {e["event"]: e for e in tracer.events}
     built, stats = ev.get("fused_system"), ev.get("fused_solve")
     rec = {"fused": bool(built and built["ok"]),
@@ -834,11 +832,10 @@ def solver_path(tracer, fit_s, peak_gb, messages=None):
            "factor_mb": None if built is None else round(built["factor_bytes"] / 2**20, 3)}
     if stats:
         rec.update({k: v for k, v in stats.items() if k != "event"},
-                   capture_s=round(stats["capture_s"], 4),
+                   capture_s=round(tracer.totals.get("fused_graph_capture", 0.0), 4),
                    host_pulls_per_cycle=stats["host_pulls"] / stats["cycles"])
-    if messages is not None:
-        rec["inner_iterations"] = sum(isinstance(m, SolverIteration) for m in messages)
-    rec.update(refinement_rounds=sum(e["event"] == "refine_round" for e in tracer.events),
+    rec.update(inner_iterations=tracer.counters.get("fgmres_iters", 0),
+               refinement_rounds=sum(e["event"] == "refine_round" for e in tracer.events),
                residual=ev["solve_done"]["residual"],
                solve_column_s=round(tracer.totals.get("solve_column", 0.0), 4),
                fit_s=round(fit_s, 4), peak_gb=round(peak_gb, 4))
@@ -866,17 +863,15 @@ def fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit):
     tracer = timing.enable_global_tracer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    inner = []
     t0 = time.perf_counter()
     try:
-        again = frt.RBFInterpolator(pts, vals, settings, device=dev,
-                                    progress_callback=frt.Progress(inner.append))
+        again = frt.RBFInterpolator(pts, vals, settings, device=dev)
         torch.cuda.synchronize()
     finally:
         fused.FusedSystem.__init__ = init
         timing.disable_global_tracer()
     warm_fit = solver_path(tracer, time.perf_counter() - t0,
-                           torch.cuda.max_memory_allocated(dev) / 1e9, inner)
+                           torch.cuda.max_memory_allocated(dev) / 1e9)
     fs = kept[0]
     same = [np.array_equal(getattr(again.coefficients, k), getattr(rbfi.coefficients, k))
             for k in ("point_coefficients", "poly_coefficients")]
@@ -907,17 +902,15 @@ def fused_vs_host_loop(frt, timing, dev, pts, vals, settings, rbfi, fused_fit):
     if FUSED_ENV in os.environ:
         raise RuntimeError(f"unset {FUSED_ENV}: phase 4 compares the fused path with 0")
     os.environ[FUSED_ENV] = "0"
-    inner = []
     t0 = time.perf_counter()
     try:
-        host = frt.RBFInterpolator(pts, vals, settings, device=dev,
-                                   progress_callback=frt.Progress(inner.append))
+        host = frt.RBFInterpolator(pts, vals, settings, device=dev)
         torch.cuda.synchronize()
     finally:
         del os.environ[FUSED_ENV]
         timing.disable_global_tracer()
     host_fit = solver_path(tracer, time.perf_counter() - t0,
-                           torch.cuda.max_memory_allocated(dev) / 1e9, inner)
+                           torch.cuda.max_memory_allocated(dev) / 1e9)
     cf, ch = rbfi.coefficients.point_coefficients, host.coefficients.point_coefficients
     apart = float(np.max(np.abs(cf - ch)))
     bound = 1e-2 * (float(np.max(np.abs(ch))) + 1.0)
@@ -950,16 +943,14 @@ def phase_albatite(frt, nf, timing, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     nf.reset_launches()
-    inner = []
     t0 = time.perf_counter()
     with LegCounter(api) as legs:
-        rbfi = frt.RBFInterpolator(pts, vals, settings, device=dev,
-                                   progress_callback=frt.Progress(inner.append))
+        rbfi = frt.RBFInterpolator(pts, vals, settings, device=dev)
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     timing.disable_global_tracer()
     fit_launches = dict(nf.LAUNCHES)
-    fused_fit = solver_path(tracer, fit_s, torch.cuda.max_memory_allocated(dev) / 1e9, inner)
+    fused_fit = solver_path(tracer, fit_s, torch.cuda.max_memory_allocated(dev) / 1e9)
     t0 = time.perf_counter()
     pred = rbfi.evaluate_at_source(add_nugget=True)
     eval_s = time.perf_counter() - t0

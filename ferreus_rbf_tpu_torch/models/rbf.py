@@ -25,6 +25,7 @@ pass ``device="cpu"`` to run on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -44,7 +45,7 @@ from ..parallel.sharding import active_mesh
 from ..progress import DuplicatesRemoved, Message, Progress
 from ..solver.domain import Coefficients, Domain
 from ..utils import common
-from ..utils.timing import muted_events
+from ..utils.timing import muted_events, traced_stage
 from .global_trend import GlobalTrend, GlobalTrendTransform
 
 JSON_FORMAT_NAME = "ferreus_rbf.json"
@@ -124,61 +125,63 @@ class RBFInterpolator:
         quiet = mesh is not None and mesh.rank != 0  # one stream: rank 0's
         if quiet:
             progress_callback = None
-        solver_start = time.perf_counter()
-        points = np.asarray(points, np.float64)
-        values = np.asarray(values, np.float64)
-        if values.ndim == 1:
-            values = values[:, None]
-        dimensions = points.shape[1]
-        if not 1 <= dimensions <= 3:
-            raise ValueError(f"Unsupported number of dimensions: {dimensions}")
+        span = contextlib.nullcontext() if _skip_solve else traced_stage("fit")
+        with muted_events(quiet), span:
+            solver_start = time.perf_counter()
+            points = np.asarray(points, np.float64)
+            values = np.asarray(values, np.float64)
+            if values.ndim == 1:
+                values = values[:, None]
+            dimensions = points.shape[1]
+            if not 1 <= dimensions <= 3:
+                raise ValueError(f"Unsupported number of dimensions: {dimensions}")
 
-        settings = dataclasses.replace(interpolant_settings)
-        settings.set_basis_size(dimensions)
-        self.interpolant_settings = settings
-        self.params = params if params is not None else Params.new_defaults(settings.kernel_type)
-        self.progress_callback = progress_callback
-        self.device = device
+            settings = dataclasses.replace(interpolant_settings)
+            settings.set_basis_size(dimensions)
+            self.interpolant_settings = settings
+            self.params = (params if params is not None
+                           else Params.new_defaults(settings.kernel_type))
+            self.progress_callback = progress_callback
+            self.device = device
 
-        if self.params.test_unique and not _skip_solve:
-            idx = remove_duplicates(points, settings)
-            if idx.shape[0] != points.shape[0]:
+            if self.params.test_unique and not _skip_solve:
+                idx = remove_duplicates(points, settings)
+                if idx.shape[0] != points.shape[0]:
+                    progress_mod.emit(
+                        progress_callback,
+                        DuplicatesRemoved(num_duplicates=points.shape[0] - idx.shape[0]),
+                    )
+                    points = points[idx]
+                    values = values[idx]
+
+            self.global_trend = None
+            if global_trend is not None:
+                self.global_trend = GlobalTrendTransform(points.mean(axis=0), global_trend)
+                points = self.global_trend.transform_points(points)
+
+            self.points = points
+            self.point_values = values
+            self.coefficients = Coefficients(np.zeros((0, values.shape[1])))
+            self.translation_factor = np.zeros(0)
+            self.scale_factor = np.ones(0)
+            self._evaluator = None
+
+            if not _skip_solve:
+                self._setup_and_solve()
+                duration = time.perf_counter() - solver_start
                 progress_mod.emit(
                     progress_callback,
-                    DuplicatesRemoved(num_duplicates=points.shape[0] - idx.shape[0]),
+                    Message(
+                        message=(
+                            f"Took {duration:.3f}s to solve RBF for {self.points.shape[0]} points "
+                            f"using the following settings:\n"
+                            f"Kernel: {settings.kernel_type.value}, "
+                            f"Polynomial degree: {settings.polynomial_degree}\n"
+                            f"Fitting accuracy: {settings.fitting_accuracy.tolerance}, "
+                            f"Tolerance type: {settings.fitting_accuracy.tolerance_type.value}"
+                        )
+                    ),
                 )
-                points = points[idx]
-                values = values[idx]
-
-        self.global_trend = None
-        if global_trend is not None:
-            self.global_trend = GlobalTrendTransform(points.mean(axis=0), global_trend)
-            points = self.global_trend.transform_points(points)
-
-        self.points = points
-        self.point_values = values
-        self.coefficients = Coefficients(np.zeros((0, values.shape[1])))
-        self.translation_factor = np.zeros(0)
-        self.scale_factor = np.ones(0)
-        self._evaluator = None
-
-        if not _skip_solve:
-            with muted_events(quiet):
-                self._setup_and_solve()
-            duration = time.perf_counter() - solver_start
-            progress_mod.emit(
-                progress_callback,
-                Message(
-                    message=(
-                        f"Took {duration:.3f}s to solve RBF for {self.points.shape[0]} points "
-                        f"using the following settings:\n"
-                        f"Kernel: {settings.kernel_type.value}, "
-                        f"Polynomial degree: {settings.polynomial_degree}\n"
-                        f"Fitting accuracy: {settings.fitting_accuracy.tolerance}, "
-                        f"Tolerance type: {settings.fitting_accuracy.tolerance_type.value}"
-                    )
-                ),
-            )
 
     @classmethod
     def from_numpy_state(
@@ -318,16 +321,18 @@ class RBFInterpolator:
 
     def evaluate(self, target_points) -> np.ndarray:
         """One-shot evaluation over the union of source/target extents."""
-        tree = self._make_evaluator(False, self._evaluator_union_extents(target_points))
-        tree.set_weights(self.coefficients.point_coefficients)
-        return self._evaluate(tree, target_points, False, False, leaves_mode=False)[0]
+        with traced_stage("evaluate"):
+            tree = self._make_evaluator(False, self._evaluator_union_extents(target_points))
+            tree.set_weights(self.coefficients.point_coefficients)
+            return self._evaluate(tree, target_points, False, False, leaves_mode=False)[0]
 
     def evaluate_with_gradients(self, target_points):
         """One-shot values and gradients ((n, nrhs * d)) over the union of
         source/target extents."""
-        tree = self._make_evaluator(False, self._evaluator_union_extents(target_points))
-        tree.set_weights(self.coefficients.point_coefficients)
-        return self._evaluate(tree, target_points, True, False, leaves_mode=False)
+        with traced_stage("evaluate"):
+            tree = self._make_evaluator(False, self._evaluator_union_extents(target_points))
+            tree.set_weights(self.coefficients.point_coefficients)
+            return self._evaluate(tree, target_points, True, False, leaves_mode=False)
 
     def evaluate_at_source(self, add_nugget: bool = False) -> np.ndarray:
         """Evaluate at the training sites (convergence diagnostics)."""

@@ -62,7 +62,7 @@ import torch
 
 from ...config import FmmCompressionType, FmmParams
 from ...parallel import sharding
-from ...utils.timing import record_event, traced_stage
+from ...utils.timing import record_event, to_device, traced_stage
 from ..kernels import Kernel, KernelParams, make_kernel
 from . import cheb, m2l, tree as tree_mod
 from .near_field import (build, near_field, near_field_cells, near_field_cells_grad,
@@ -205,10 +205,11 @@ class FmmTree:
             FmmCompressionType.SVD: "SVD",
             FmmCompressionType.ACA: "ACA",
         }[self.params.compression_type]
-        self.level_ops = m2l.build_level_operators(
-            self.kernel_np, self.p, self.d, t.radius, t.depth, compression,
-            self.params.epsilon,
-        )
+        with traced_stage("fmm_m2l_build"):
+            self.level_ops = m2l.build_level_operators(
+                self.kernel_np, self.p, self.d, t.radius, t.depth, compression,
+                self.params.epsilon,
+            )
 
     # ------------------------------------------------------------ plan
     def _build_plan(self):
@@ -344,7 +345,7 @@ class FmmTree:
 
     # ------------------------------------------------------- device state
     def _tensor(self, a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
+        return to_device(np.ascontiguousarray(a), self.device, dtype)
 
     def _build_device_state(self):
         """Index tensors in ``self._dev``; float tensors in f64 in
@@ -854,7 +855,7 @@ class FmmTree:
         return self._points
 
     def _as_weights(self, weights):
-        w = torch.as_tensor(weights, dtype=torch.float64, device=self.device)
+        w = to_device(weights, self.device, torch.float64)
         return w.reshape(self._points.shape[0], -1)
 
     def set_weights(self, weights) -> None:

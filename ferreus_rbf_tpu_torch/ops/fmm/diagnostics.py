@@ -25,9 +25,9 @@ kernel sums, no FMM) on a sampled subset of the points.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ...config import FmmCompressionType, FmmParams
+from ...utils.timing import to_device
 from ..kernels import make_kernel
 from .api import FmmTree
 
@@ -86,7 +86,7 @@ def fmm_error_budget(
         tree = FmmTree(pts, int(p), kparams, adaptive_tree=adaptive_tree, sparse=True,
                        params=params, device=device)
         tree.prepare_targets(pts[sample_idx], "sample")
-        w_dev = torch.as_tensor(w, device=tree.device)
+        w_dev = to_device(w, tree.device)
         for prec in ("f64", "f32"):
             vals = tree.evaluate_device(w_dev, "sample", precision=prec).cpu().numpy()
             err = float(np.max(np.abs(vals - oracle)) / scale)

@@ -22,6 +22,7 @@ import numpy as np
 
 from .cheb import chebyshev_nodes, nodes_tensor_product
 from ..kernels import Kernel
+from ...utils.timing import count
 
 
 def cartesian_rows(values, d: int) -> np.ndarray:
@@ -234,7 +235,8 @@ def build_level_operators(kernel_np, p, d, radius, depth, compression, epsilon):
     """Per level (2..depth), the compressed reference operators.
 
     Returns {level: [(U, Vt) per reference vector]} — host numpy;
-    ``FmmTree._build_plan`` pads and stacks them for the device.
+    ``FmmTree._build_plan`` pads and stacks them for the device. Each
+    operator adds one to the tracer's ``m2l_operators`` counter.
     """
     refs = reference_m2l_vectors(d)
     out = {}
@@ -244,5 +246,6 @@ def build_level_operators(kernel_np, p, d, radius, depth, compression, epsilon):
             compress_operator(kernel_np, refs[r], p, d, length, compression, epsilon)
             for r in range(refs.shape[0])
         ]
+        count("m2l_operators", len(ops))
         out[level] = ops
     return out

@@ -58,7 +58,7 @@ from ..ops.polynomials import (
 )
 from ..parallel import sharding
 from ..utils.common import farthest_point_sampling, get_cheb_cube_scaling_factors
-from ..utils.timing import record_event, traced_stage
+from ..utils.timing import record_event, to_device, traced_stage
 from .domain import Domain, _rank_from_pivoted_qr
 
 
@@ -238,7 +238,7 @@ class DDMTree:
         self.factor_bytes = self.factor_bytes_rank = 0
         self.domains = self.domains_rank = 0
         self.levels: list[Level] = []
-        self._pts_dev = torch.as_tensor(self.points, device=self.device)
+        self._pts_dev = to_device(self.points, self.device)
         self._build()
 
     def _leaf_threshold_for(self, m: int) -> tuple[int, bool]:
@@ -364,7 +364,7 @@ class DDMTree:
         dom.internal_points_mask = np.ones(active.size, bool)
         dom.factorise(pts, self.settings, self.settings.basis_size != 0, self.global_trend)
         coarse_level.coarse_domain = dom
-        coarse_level.coarse_idx = torch.as_tensor(dom.overlapping_point_indices, device=self.device)
+        coarse_level.coarse_idx = to_device(dom.overlapping_point_indices, self.device)
         self.levels.append(coarse_level)
 
     def _extents_of(self, idx):
@@ -402,11 +402,10 @@ class DDMTree:
                 if k:
                     q_top[b, :, : npts - k] = plan.q_top
             # internal rows scatter to their point; the rest to the sink n_out
-            bucket = {"pts_idx": torch.as_tensor(pts_idx, device=dev),
-                      "mask": torch.as_tensor(mask, device=dev),
-                      "q_top": torch.as_tensor(q_top, device=dev), "k": k,
-                      "scatter_idx": torch.as_tensor(np.where(internal & mask, pts_idx, n_out),
-                                                     device=dev),
+            bucket = {"pts_idx": to_device(pts_idx, dev),
+                      "mask": to_device(mask, dev),
+                      "q_top": to_device(q_top, dev), "k": k,
+                      "scatter_idx": to_device(np.where(internal & mask, pts_idx, n_out), dev),
                       "pieces": []}
             if not level.recompute:
                 bucket["chol"] = []
@@ -466,7 +465,7 @@ class DDMTree:
                 )
             l_pad = np.eye(chol.shape[1])
             l_pad[: low.shape[0], : low.shape[1]] = low
-            chol[b] = torch.as_tensor(l_pad, dtype=chol.dtype, device=chol.device)
+            chol[b] = to_device(l_pad, chol.device, chol.dtype)
 
     # ------------------------------------------------------------- solves
     def solve_fine_level(self, level_idx: int, residual):
@@ -516,7 +515,7 @@ class DDMTree:
             "inv_special": (scipy.linalg.lu_solve(dom._special_point_lu, np.eye(k))
                             if dom._special_point_lu is not None else np.zeros((k, k))),
         }
-        arrays = {key: torch.as_tensor(v, device=self.device) for key, v in arrays.items()}
+        arrays = {key: to_device(v, self.device) for key, v in arrays.items()}
         return arrays, k, dom.solve_for_poly
 
     def solve_coarse(self, residual, add_poly: bool):
@@ -526,8 +525,8 @@ class DDMTree:
         gathered = residual[coarse.coarse_idx].cpu().numpy()
         sol = dom.solve_gathered(gathered)
         out = residual.new_zeros(residual.shape)
-        out[coarse.coarse_idx] = torch.as_tensor(sol.point_coefficients, device=residual.device)
+        out[coarse.coarse_idx] = to_device(sol.point_coefficients, residual.device)
         if dom.solve_for_poly and add_poly and sol.poly_coefficients is not None:
             m = sol.poly_coefficients.shape[0]
-            out[-m:] = torch.as_tensor(sol.poly_coefficients, device=residual.device)
+            out[-m:] = to_device(sol.poly_coefficients, residual.device)
         return out

@@ -21,7 +21,7 @@ import torch
 
 from ..interpolant_config import FittingAccuracy, FittingAccuracyType
 from ..progress import Progress, SolverIteration, emit, progress_from_rel
-from ..utils.timing import record_event
+from ..utils.timing import count, record_event, to_device, traced_stage
 
 
 def givens_rotation(f: float, g: float):
@@ -193,86 +193,83 @@ def fgmres_device(
     mi = max_inner_iterations
 
     for _outer in range(max_outer_iterations):
-        h = np.zeros((mi + 1, mi))
-        g = np.zeros(mi + 1)
-        cs = np.zeros(mi)
-        sn = np.zeros(mi)
+        with traced_stage("fgmres_cycle"):
+            h = np.zeros((mi + 1, mi))
+            g = np.zeros(mi + 1)
+            cs = np.zeros(mi)
+            sn = np.zeros(mi)
 
-        r_norm = float(torch.linalg.norm(r))
-        v = [r[:, 0] / r_norm]
-        z = []
-        g[0] = r_norm
+            r_norm = float(torch.linalg.norm(r))
+            v = [r[:, 0] / r_norm]
+            z = []
+            g[0] = r_norm
 
-        breakdown_at = None
-        for j in range(mi):
-            w = m(v[j][:, None]) if m is not None else v[j][:, None]
-            z.append(w[:, 0])
-            wj = a(w)[:, 0]
+            breakdown_at = None
+            for j in range(mi):
+                w = m(v[j][:, None]) if m is not None else v[j][:, None]
+                z.append(w[:, 0])
+                wj = a(w)[:, 0]
 
-            vmat = torch.stack(v, dim=1)  # (n, j+1)
-            hcol1 = vmat.T @ wj
-            wj = wj - vmat @ hcol1
-            hcol2 = vmat.T @ wj
-            wj = wj - vmat @ hcol2
-            norm = float(torch.linalg.norm(wj))
-            h[: j + 1, j] = (hcol1 + hcol2).cpu().numpy()
-            h[j + 1, j] = norm
+                vmat = torch.stack(v, dim=1)  # (n, j+1)
+                hcol1 = vmat.T @ wj
+                wj = wj - vmat @ hcol1
+                hcol2 = vmat.T @ wj
+                wj = wj - vmat @ hcol2
+                norm = float(torch.linalg.norm(wj))
+                h[: j + 1, j] = (hcol1 + hcol2).cpu().numpy()
+                h[j + 1, j] = norm
 
-            for i in range(j):
-                temp = cs[i] * h[i, j] + sn[i] * h[i + 1, j]
-                h[i + 1, j] = -sn[i] * h[i, j] + cs[i] * h[i + 1, j]
-                h[i, j] = temp
+                for i in range(j):
+                    temp = cs[i] * h[i, j] + sn[i] * h[i + 1, j]
+                    h[i + 1, j] = -sn[i] * h[i, j] + cs[i] * h[i + 1, j]
+                    h[i, j] = temp
 
-            c, s, _ = givens_rotation(h[j, j], h[j + 1, j])
-            h[j, j] = c * h[j, j] + s * h[j + 1, j]
-            h[j + 1, j] = 0.0
-            temp = c * g[j] + s * g[j + 1]
-            g[j + 1] = -s * g[j] + c * g[j + 1]
-            g[j] = temp
-            cs[j], sn[j] = c, s
+                c, s, _ = givens_rotation(h[j, j], h[j + 1, j])
+                h[j, j] = c * h[j, j] + s * h[j + 1, j]
+                h[j + 1, j] = 0.0
+                temp = c * g[j] + s * g[j + 1]
+                g[j + 1] = -s * g[j] + c * g[j + 1]
+                g[j] = temp
+                cs[j], sn[j] = c, s
 
-            v.append(wj / norm if norm != 0.0 else wj)
+                v.append(wj / norm if norm != 0.0 else wj)
 
+                if tolerance.tolerance_type == FittingAccuracyType.Absolute:
+                    res_norm = abs(g[j + 1])
+                else:
+                    res_norm = abs(g[j + 1]) / beta
+                emit(
+                    callback,
+                    SolverIteration(
+                        iter=iteration,
+                        residual=res_norm,
+                        progress=progress_from_rel(res_norm, beta, tolerance.tolerance),
+                    ),
+                )
+                count("fgmres_iters")
+                if res_norm < tolerance.tolerance:
+                    breakdown_at = j + 1
+                    break
+                iteration += 1
+
+            i = breakdown_at if breakdown_at is not None else mi
+            y = scipy.linalg.solve_triangular(h[:i, :i], g[:i], lower=False)
+            zmat = torch.stack(z[:i], dim=1)
+            x = x + (zmat @ to_device(y, zmat.device, zmat.dtype))[:, None]
+            if breakdown_at is not None:
+                return x
+
+            r = b - a(x)
+            r_l2 = float(torch.linalg.norm(r))
             if tolerance.tolerance_type == FittingAccuracyType.Absolute:
-                res_norm = abs(g[j + 1])
+                res_norm = float(r.abs().max())
             else:
-                res_norm = abs(g[j + 1]) / beta
-            emit(
-                callback,
-                SolverIteration(
-                    iter=iteration,
-                    residual=res_norm,
-                    progress=progress_from_rel(res_norm, beta, tolerance.tolerance),
-                ),
-            )
+                res_norm = r_l2 / beta
             if res_norm < tolerance.tolerance:
-                breakdown_at = j + 1
                 break
-            iteration += 1
-
-        i = breakdown_at if breakdown_at is not None else mi
-        y = scipy.linalg.solve_triangular(h[:i, :i], g[:i], lower=False)
-        zmat = torch.stack(z[:i], dim=1)
-        x = x + (zmat @ torch.as_tensor(y, dtype=zmat.dtype, device=zmat.device))[:, None]
-        if breakdown_at is not None:
-            return x
-
-        r = b - a(x)
-        r_l2 = float(torch.linalg.norm(r))
-        if tolerance.tolerance_type == FittingAccuracyType.Absolute:
-            res_norm = float(r.abs().max())
-        else:
-            res_norm = r_l2 / beta
-        if res_norm < tolerance.tolerance:
-            break
-        # r_norm is the cycle-start l2 residual (set before the inner loop)
-        if stall_cycle_factor is not None and r_l2 > stall_cycle_factor * r_norm:
-            record_event("stall_exit", {
-                "cycle_start_l2": r_norm,
-                "cycle_end_l2": r_l2,
-                "factor": stall_cycle_factor,
-            })
-            break
+            # r_norm is the cycle-start l2 residual (set before the inner loop)
+            if stall_cycle_factor is not None and r_l2 > stall_cycle_factor * r_norm:
+                break
 
     return x
 

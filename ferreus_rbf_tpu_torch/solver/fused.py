@@ -37,6 +37,11 @@ the two give the same bits.
 A replay runs no Python, so no kernel wrapper counts its launches: the
 counts that the capture added are taken back, and each replay adds them
 again (a replay runs everything it captured) to each dict in ``COUNTS``.
+For the same reason the tracer's stages inside a cycle (``schwarz_apply``,
+``fmm_matvec``) are timed in its eager and capture runs only; each cycle
+is the stage ``fgmres_cycle``, each capture ``fused_graph_capture`` (its
+stages inside the capture skip their synchronize), and the tracer's
+``fgmres_iters`` counts each cycle's steps from its stats on the host.
 
 Three gates keep the host loop (``ok`` False, ``gate`` names the one that
 fired): the coarse system is not SPD; a Schwarz level recomputes its
@@ -54,7 +59,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import time
 
 import numpy as np
 import torch
@@ -62,7 +66,7 @@ import torch
 from ..interpolant_config import FittingAccuracy, FittingAccuracyType
 from ..ops.fmm import near_field
 from ..progress import SolverIteration, emit, progress_from_rel
-from ..utils.timing import record_event
+from ..utils.timing import count, record_event, to_device, traced_stage
 from .schwarz import schwarz_preconditioner
 
 # Stored Schwarz factors above which the host loop is kept: the JAX
@@ -135,7 +139,7 @@ class FusedSystem:
         self.ddm = ddm
         self.factor_bytes = ddm.factor_bytes  # the same on every rank
         mesh = system.fmm_tree.mesh
-        self.stats = {"graphs": 0, "capture_s": 0.0, "cycles": 0, "replays": 0,
+        self.stats = {"graphs": 0, "cycles": 0, "replays": 0,
                       "host_pulls": 0, "inner_iterations": 0, "masked_steps": 0,
                       "graph_gate": None}
         if mesh is not None and not mesh.capturable:
@@ -284,18 +288,18 @@ class FusedSystem:
 
     @staticmethod
     def _scalars(dev, beta, tol):
-        return (torch.tensor(float(beta), dtype=torch.float64, device=dev),
-                torch.tensor(float(tol), dtype=torch.float64, device=dev))
+        return (to_device(float(beta), dev, torch.float64),
+                to_device(float(tol), dev, torch.float64))
 
     def _capture(self, key, b, x, r):
-        t0 = time.perf_counter()
-        graph = _Graph(b, x, r, key[2])
-        with _taken_back() as graph.counts, torch.cuda.graph(graph.graph, stream=self._stream):
-            graph.out = self._run(key, graph.b, graph.x, graph.r, graph.beta, graph.tol,
-                                  masked=True)
+        with traced_stage("fused_graph_capture"):
+            graph = _Graph(b, x, r, key[2])
+            with _taken_back() as graph.counts, torch.cuda.graph(graph.graph,
+                                                                 stream=self._stream):
+                graph.out = self._run(key, graph.b, graph.x, graph.r, graph.beta, graph.tol,
+                                      masked=True)
         self._graphs[key] = graph
         self.stats["graphs"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
 
     def _replay(self, graph, b, x, r, beta, tol):
         for dst, src in ((graph.b, b), (graph.x, x), (graph.r, r)):
@@ -349,9 +353,11 @@ def fgmres_fused(
 
     iteration = 1
     for _outer in range(max_outer_iterations):
-        x, r, stats = fs.cycle(prec, tol_abs, mi, b, x, r, beta, tolerance.tolerance)
+        with traced_stage("fgmres_cycle"):
+            x, r, stats = fs.cycle(prec, tol_abs, mi, b, x, r, beta, tolerance.tolerance)
         res_g, res_r, jf = float(stats[0]), float(stats[1]), int(stats[2])
         fs.stats["inner_iterations"] += jf
+        count("fgmres_iters", jf)
         for j in range(jf):
             res = float(stats[3 + j])
             emit(callback, SolverIteration(

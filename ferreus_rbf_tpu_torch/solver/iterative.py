@@ -27,7 +27,7 @@ import torch
 from ..config import Solvers
 from ..ops.fmm.api import FmmTree
 from ..ops.polynomials import evaluate_monomials
-from ..utils.timing import global_tracer, record_event, traced_stage
+from ..utils.timing import global_tracer, record_event, to_device, traced_stage
 from . import fgmres as solvers
 from . import fused as fused_mod
 from .ddm import DDMTree
@@ -71,8 +71,8 @@ class DeviceSystem:
                 settings.polynomial_degree, self.m,
                 rbfi.translation_factor, rbfi.scale_factor,
             )
-            self.monomial_dev = torch.as_tensor(monomials, device=dev)
-            self.ortho_poly = torch.as_tensor(np.linalg.qr(monomials)[0], device=dev)
+            self.monomial_dev = to_device(monomials, dev)
+            self.ortho_poly = to_device(np.linalg.qr(monomials)[0], dev)
 
         factor_dtype = torch.float32 if params.precond_factor_dtype == "f32" else torch.float64
         with traced_stage("ddm_tree_build"):
@@ -92,23 +92,24 @@ class DeviceSystem:
                     cache[("lvl", i)] = cache["__all__"]
                 else:
                     self.fmm_tree.prepare_targets(points[idx], ("lvl", i))
-                self._level_idx[i] = torch.as_tensor(idx, device=dev)
+                self._level_idx[i] = to_device(idx, dev)
             coarse_idx = self.ddm_tree.levels[-1].point_indices
             self.fmm_tree.prepare_targets(points[coarse_idx], ("lvl", "coarse"))
-            self._level_idx["coarse"] = torch.as_tensor(coarse_idx, device=dev)
+            self._level_idx["coarse"] = to_device(coarse_idx, dev)
 
         self.nugget = settings.nugget
 
     # -- operators ---------------------------------------------------------
     def matvec(self, w, precision="f64"):
         """Full system operator on an (n + m, nrhs) tensor."""
-        wp = w[: self.n]
-        top = self.fmm_tree.evaluate_device(wp, "__all__", precision=precision)
-        top = top + self.nugget * wp
-        if self.monomial_dev is None:
-            return top
-        top = top + self.monomial_dev @ w[self.n :]
-        return torch.cat([top, w.new_zeros((self.m, w.shape[1]))])
+        with traced_stage("fmm_matvec"):
+            wp = w[: self.n]
+            top = self.fmm_tree.evaluate_device(wp, "__all__", precision=precision)
+            top = top + self.nugget * wp
+            if self.monomial_dev is None:
+                return top
+            top = top + self.monomial_dev @ w[self.n :]
+            return torch.cat([top, w.new_zeros((self.m, w.shape[1]))])
 
     def matvec_f32(self, w):
         return self.matvec(w, precision="f32")
@@ -163,7 +164,7 @@ def iterative_fit(rbfi):
             fs = None
 
     for col in range(num_cols):
-        b = torch.as_tensor(rhs[:, col : col + 1], device=rbfi.device)
+        b = to_device(rhs[:, col : col + 1], rbfi.device)
         with traced_stage("solve_column"):
             sol = _solve_one_column(rbfi, system, fs, b, settings, params).cpu().numpy()
         point_coefficients[:, col] = sol[:n, 0]
@@ -187,7 +188,7 @@ def iterative_fit(rbfi):
 
     def _m_step_diagnostic(_state=fit_state, _rhs=rhs):
         system = DeviceSystem(_state)
-        b0 = torch.as_tensor(_rhs[:, :1], device=_state.device)
+        b0 = to_device(_rhs[:, :1], _state.device)
         nb = max(float(torch.linalg.norm(b0)), 1e-300)
         z = system.precon(b0)
         az32 = system.matvec(z, precision="f32")

@@ -723,3 +723,90 @@ def test_low_d_fit_on_card_matches_cpu(cuda, d):
     assert got.shape == want.shape == (500,)
     assert np.max(np.abs(got - want)) < 1e-5 * np.max(np.abs(vals))
     assert np.max(np.abs(card.evaluate_at_source(True) - vals)) < 1e-4 * np.max(np.abs(vals))
+
+
+# The tracer on the card (utils/timing.py): spans on the profiler's clock,
+# a span inside a graph capture, and the counted host-to-device bytes.
+
+def test_span_brackets_its_kernel_on_the_profilers_clock(cuda, tmp_path):
+    """A span around one ~10-ms matmul brackets the kernel's device interval
+    to within 100 us, and its closing synchronize returns within 600 us of
+    the kernel's end: the span's ``time.time_ns()`` stamps and the
+    profiler's device timestamps are one clock, to within -100/+600 us
+    (a device clock running early would open a gap at the trailing edge).
+    The trace holds the span's ``record_function`` range."""
+    from ferreus_rbf_tpu_torch.utils import timing
+
+    a = torch.full((6144, 6144), 0.5, device=cuda)  # no RNG: an earlier capture may hold it
+    (a @ a).sum().item()  # cuBLAS' handle and workspace
+    tracer = timing.enable_global_tracer()
+    try:
+        with timing.profiler_trace(str(tmp_path)) as prof:
+            with timing.traced_stage("one_matmul"):
+                a @ a
+    finally:
+        timing.disable_global_tracer()
+    ((_, _, _, start, host_end, end),) = tracer.spans
+    events = list(prof.profiler.kineto_results.events())
+    device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+              and e.name() != "one_matmul"]
+    kernel = max(device, key=lambda e: e.duration_ns())
+    k0, k1 = kernel.start_ns(), kernel.start_ns() + kernel.duration_ns()
+    print(f"kernel {kernel.name()} {kernel.duration_ns() / 1e6:.3f} ms; starts "
+          f"{(k0 - start) / 1e3:.1f} us after the span, ends {(end - k1) / 1e3:.1f} us before "
+          f"its end ({(host_end - start) / 1e3:.1f} us on the host)")
+    assert kernel.duration_ns() > 2e6
+    assert start - 100_000 <= k0 and k1 <= end + 100_000
+    assert end - k1 <= 600_000
+    assert any(e.name() == "one_matmul" and e.device_type() == torch.autograd.DeviceType.CPU
+               for e in events)
+
+
+def test_span_inside_a_graph_capture_does_not_raise(cuda):
+    """A stage opened while the stream captures skips its synchronize (the
+    capture's "global" error mode would raise on one); the replay computes."""
+    from ferreus_rbf_tpu_torch.utils import timing
+
+    x = torch.ones(1024, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        x * 2  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    tracer = timing.enable_global_tracer()
+    try:
+        with torch.cuda.graph(graph):
+            with timing.traced_stage("captured"):
+                y = x * 2
+                timing.count("inside")
+        x.fill_(3.0)
+        graph.replay()
+    finally:
+        timing.disable_global_tracer()
+    assert float(y.sum()) == 6.0 * 1024
+    assert [s[2] for s in tracer.spans] == ["captured"] and tracer.counters["inside"] == 1
+
+
+def test_h2d_bytes_match_the_profilers_copies(cuda, tmp_path):
+    """``h2d_bytes`` over one small fit is within 5% of the bytes of the
+    ``Memcpy HtoD`` ops in the Chrome trace that ``profiler_trace`` exports."""
+    import json
+
+    from ferreus_rbf_tpu_torch.utils import timing
+
+    frt.RBFInterpolator(*_fused_case(), device=cuda)  # warm: kernels loaded, handles made
+    tracer = timing.enable_global_tracer()
+    try:
+        with timing.profiler_trace(str(tmp_path)):
+            frt.RBFInterpolator(*_fused_case(), device=cuda)
+            torch.cuda.synchronize()
+    finally:
+        timing.disable_global_tracer()
+    with open(tmp_path / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    copied = sum(e["args"]["bytes"] for e in events
+                 if e.get("name", "").startswith("Memcpy HtoD"))
+    counted = tracer.counters["h2d_bytes"]
+    print(f"h2d_bytes {counted}, Memcpy HtoD bytes {copied}")
+    assert copied > 0 and abs(counted - copied) <= 0.05 * copied
