@@ -3,7 +3,9 @@
 Port of the single-device ``FmmTree`` of ``ferreus_rbf_tpu/ops/fmm/api.py``.
 The octree, interaction lists, M2L operators and the bucket layout are
 built once on the host in numpy (``tree.py``, ``cheb.py``, ``m2l.py``) and
-moved to ``device`` as flat tensors. One matvec is
+moved to ``device`` as flat tensors; the compressed M2L levels come from
+``m2l``'s memo where an earlier tree of the same kernel, order, compression,
+epsilon and cell length built them. One matvec is
 
 * upward pass: P2M as one batched matmul against the leaf anterpolation
   weights, then M2M per level (one einsum + index_add);
@@ -207,7 +209,7 @@ class FmmTree:
         }[self.params.compression_type]
         with traced_stage("fmm_m2l_build"):
             self.level_ops = m2l.build_level_operators(
-                self.kernel_np, self.p, self.d, t.radius, t.depth, compression,
+                self.kernel_params, self.p, self.d, t.radius, t.depth, compression,
                 self.params.epsilon,
             )
 

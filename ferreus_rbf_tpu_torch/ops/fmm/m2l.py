@@ -8,7 +8,9 @@ permutations of the Chebyshev tensor grid; each reference operator is
 compressed once per level (ACA + QR/SVD recompression, plain truncated SVD,
 or dense).
 
-Copy of ``ferreus_rbf_tpu/ops/fmm/m2l.py`` (host numpy). The plan
+Copy of ``ferreus_rbf_tpu/ops/fmm/m2l.py`` (host numpy), plus a process-wide
+memo that keeps each compressed level across trees of one kernel and cell
+length (:func:`build_level_operators`, :func:`clear_cache`). The plan
 construction in ``api.py`` folds the permutations into per-vector (U, V^T) stacks, so the
 device side is batched matmuls only.
 """
@@ -16,12 +18,13 @@ device side is batched matmuls only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 
 import numpy as np
 
 from .cheb import chebyshev_nodes, nodes_tensor_product
-from ..kernels import Kernel
+from ..kernels import Kernel, make_kernel
 from ...utils.timing import count
 
 
@@ -231,21 +234,43 @@ def compress_operator(kernel_np: Kernel, ref_vector, p, d, length, compression, 
     return recompress(u_aca, v_aca, epsilon)
 
 
-def build_level_operators(kernel_np, p, d, radius, depth, compression, epsilon):
+# Compressed reference operators of one level, keyed by all they depend on:
+# (kernel params, p, d, compression, epsilon, cell length). The octree snaps
+# its box to whole units, so refits of one data set, and evaluations over one
+# box, ask for the same keys. At most 32 levels are kept (least recently used
+# first out), a few MB each at p = 7; their arrays are read-only, so no tree
+# can alter what another tree holds.
+@functools.lru_cache(maxsize=32)
+def _level(kernel_params, p, d, compression, epsilon, length):
+    kernel_np = make_kernel(kernel_params, xp=np)
+    refs = reference_m2l_vectors(d)
+    ops = tuple(compress_operator(kernel_np, refs[r], p, d, length, compression, epsilon)
+                for r in range(refs.shape[0]))
+    for op in ops:
+        for a in op:
+            if a is not None:
+                a.setflags(write=False)
+    count("m2l_operators", len(ops))
+    return ops
+
+
+clear_cache = _level.cache_clear  # drop every kept level (tests start cold with it)
+
+
+def build_level_operators(kernel_params, p, d, radius, depth, compression, epsilon):
     """Per level (2..depth), the compressed reference operators.
 
-    Returns {level: [(U, Vt) per reference vector]} — host numpy;
-    ``FmmTree._build_plan`` pads and stacks them for the device. Each
-    operator adds one to the tracer's ``m2l_operators`` counter.
+    Returns {level: ((U, Vt) per reference vector)} — host numpy,
+    read-only; ``FmmTree._build_plan`` pads and stacks them for the device.
+    A level whose key is kept is served from the memo and adds its
+    operators to the tracer's ``m2l_cache_hits`` counter; any other level
+    is compressed, kept, and adds them to ``m2l_operators``.
     """
-    refs = reference_m2l_vectors(d)
     out = {}
     for level in range(2, depth + 1):
-        length = 2.0 * radius / (1 << level)
-        ops = [
-            compress_operator(kernel_np, refs[r], p, d, length, compression, epsilon)
-            for r in range(refs.shape[0])
-        ]
-        count("m2l_operators", len(ops))
-        out[level] = ops
+        misses = _level.cache_info().misses
+        out[level] = _level(kernel_params, p, d, compression, epsilon,
+                            2.0 * radius / (1 << level))
+        if _level.cache_info().misses == misses:
+            count("m2l_cache_hits", len(out[level]))
     return out

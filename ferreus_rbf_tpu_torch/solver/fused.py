@@ -19,7 +19,8 @@ solve is two triangular solves there instead of a host round trip.
 On a CUDA device each restart cycle is captured once as a CUDA graph per
 (inner precision, tolerance type, mi), so at most two graphs per fit (f32
 inner solves, f64 after escalation), and replayed for every later cycle
-of that key. The first cycle of a key runs eagerly on the capture stream:
+of that key. The first cycle of a key runs eagerly on the capture stream
+(one per device, shared by every fused system):
 it is the warm-up that builds what the passes create on first use (the
 near-field work lists, the f32 tables, cuBLAS' workspace on that stream),
 since nothing made during a capture holds data before a replay. The graph
@@ -77,6 +78,19 @@ FACTOR_BYTES_MAX = 512 << 20
 # and any dict of counts a caller appends while it counts wrapper calls of
 # its own (chip_smoke.py's per-leg counter).
 COUNTS = [near_field.LAUNCHES]
+
+# The side stream of every fused system on a device, made once: cuBLAS keeps
+# a workspace (32 MiB on an H100) on the card for each stream it has run
+# on, so a stream per system would hold one more workspace after each fit,
+# up to the 32 streams of torch's pool.
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(dev) -> torch.cuda.Stream:
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return stream
 
 
 def _givens_device(f, g):
@@ -145,7 +159,6 @@ class FusedSystem:
         if mesh is not None and not mesh.capturable:
             self.stats["graph_gate"] = "gloo collectives cannot be captured"
         self._graphs = {}
-        self._stream = None
         self.ok, self.gate = False, None
         coarse = ddm.coarse_device_arrays()
         if coarse is None:
@@ -273,9 +286,7 @@ class FusedSystem:
             x, r, stats = self._run(key, b, x, r, *self._scalars(dev, beta, tol))
             self.stats["host_pulls"] += 1
             return x, r, stats.cpu().numpy()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        stream, main = self._stream, torch.cuda.current_stream(dev)
+        stream, main = _capture_stream(dev), torch.cuda.current_stream(dev)
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
             x, r, stats = self._run(key, b, x, r, *self._scalars(dev, beta, tol))
@@ -294,8 +305,8 @@ class FusedSystem:
     def _capture(self, key, b, x, r):
         with traced_stage("fused_graph_capture"):
             graph = _Graph(b, x, r, key[2])
-            with _taken_back() as graph.counts, torch.cuda.graph(graph.graph,
-                                                                 stream=self._stream):
+            with _taken_back() as graph.counts, torch.cuda.graph(
+                    graph.graph, stream=_capture_stream(b.device)):
                 graph.out = self._run(key, graph.b, graph.x, graph.r, graph.beta, graph.tol,
                                       masked=True)
         self._graphs[key] = graph

@@ -523,6 +523,26 @@ def test_two_fused_fits_on_card_are_bitwise(cuda):
     assert np.array_equal(a.coefficients.poly_coefficients, b.coefficients.poly_coefficients)
 
 
+def test_fused_fits_leave_no_card_memory_behind(cuda):
+    """Every fused fit runs on the device's one capture stream, so a fit
+    leaves nothing on the card: a stream per fit left a cuBLAS workspace
+    (32 MiB) there after each fit, up to the 32 streams of torch's pool."""
+    import gc
+
+    from ferreus_rbf_tpu_torch.solver import fused
+
+    _fused_fit(cuda)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda)
+    for _ in range(3):
+        _fused_fit(cuda)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == held
+    assert len(fused._CAPTURE_STREAMS) == 1
+
+
 def test_fused_fit_on_card_matches_host_loop(cuda):
     """Both converge, honour the data within 1e-5 of max |values|, and
     agree within 1e-2 * (max |c| + 1) (the JAX package's fused test)."""

@@ -74,7 +74,9 @@ def _bytes_sent(data, dtype):
 
 def _fit_and_evaluate(path, traced, record=None):
     """(fit, evaluate's values, tracer or None, progress messages) of one
-    fit on ``path`` ("fused" or "host") and one ``evaluate``."""
+    fit on ``path`` ("fused" or "host") and one ``evaluate``, from a cold
+    memo of compressed M2L levels."""
+    m2l.clear_cache()
     pts, vals, settings, params = _case()
     targets = np.random.default_rng(3).random((300, 3))
     messages = []
@@ -206,7 +208,9 @@ def test_to_device_counts_the_bytes_it_copies():
 
 @pytest.mark.parametrize("d", [2, 3])
 def test_m2l_operators_per_tree_build(d):
-    """(depth - 1) x the reference vectors of ``d`` dimensions per tree."""
+    """(depth - 1) x the reference vectors of ``d`` dimensions per tree, from
+    a cold memo of compressed M2L levels."""
+    m2l.clear_cache()
     pts = np.random.default_rng(d).random((4000, d))
     tracer = timing.enable_global_tracer()
     tree = FmmTree(pts, 4, tk.KernelParams(tk.KernelType("ThinPlateSplineRbf")),
@@ -222,9 +226,13 @@ def test_counters_event_once_per_fit_and_evaluate(fits):
     _, _, tracer, _ = fits["fused"]
     events = _counters_events(tracer)
     assert [e["span"] for e in events] == ["fit", "evaluate"]
-    for key in ("fgmres_iters", "m2l_operators", "h2d_bytes"):
+    for key in ("fgmres_iters", "m2l_operators", "m2l_cache_hits", "h2d_bytes"):
         assert sum(e.get(key, 0) for e in events) == tracer.counters[key] > 0
-    assert events[0]["m2l_operators"] > 0 and events[1]["m2l_operators"] > 0
+    for e in events:
+        assert e.get("m2l_operators", 0) + e.get("m2l_cache_hits", 0) > 0
+    # the evaluate's tree spans the fit's box: every level it needs, the fit built
+    assert events[1].get("m2l_operators", 0) == 0
+    assert events[1]["m2l_cache_hits"] == events[0]["m2l_operators"]
     for sid, pid, name, start, host_end, end in tracer.spans:
         assert start <= host_end <= end
     names = {s[0]: s[2] for s in tracer.spans}
