@@ -11,6 +11,12 @@ compression selection and ``FmmParams`` tuning. It wraps the port's
 H1-H3 on the card (each specialised per kernel type), on their plain
 versions on the CPU. ``device`` defaults to the CUDA card; pass
 ``device="cpu"`` to run on the CPU.
+
+Each method that runs a pass is one outermost stage of the port's tracer
+(``utils/timing.py``), ``bbfmm_<method>``, which holds the copy of the
+weights to the device and of the result back to the host; its counters
+(targets binned, bytes copied to the device) form one ``counters`` event
+per call. Nothing is recorded while tracing is off.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from .ops.fmm.api import (
 )
 from .ops.kernels import KernelParams as _KernelParams
 from .ops.kernels import KernelType as _KernelType
+from .utils.timing import traced_stage
 
 
 class FmmKernelType(enum.Enum):
@@ -110,22 +117,28 @@ class FmmTree:
         return self._tree.source_points
 
     def set_weights(self, weights) -> None:
-        self._tree.set_weights(weights)
+        with traced_stage("bbfmm_set_weights"):
+            self._tree.set_weights(weights)
 
     def set_local_coefficients(self, weights) -> None:
-        self._tree.set_local_coefficients(weights)
+        with traced_stage("bbfmm_set_local_coefficients"):
+            self._tree.set_local_coefficients(weights)
 
     def evaluate(self, weights, target_points) -> np.ndarray:
-        return self._tree.evaluate(weights, target_points)
+        with traced_stage("bbfmm_evaluate"):
+            return self._tree.evaluate(weights, target_points)
 
     def evaluate_with_gradients(self, weights, target_points):
-        return self._tree.evaluate_with_gradients(weights, target_points)
+        with traced_stage("bbfmm_evaluate_with_gradients"):
+            return self._tree.evaluate_with_gradients(weights, target_points)
 
     def evaluate_leaves(self, weights, target_points) -> np.ndarray:
-        return self._tree.evaluate_leaves(weights, target_points)
+        with traced_stage("bbfmm_evaluate_leaves"):
+            return self._tree.evaluate_leaves(weights, target_points)
 
     def evaluate_leaves_with_gradients(self, weights, target_points):
-        return self._tree.evaluate_leaves_with_gradients(weights, target_points)
+        with traced_stage("bbfmm_evaluate_leaves_with_gradients"):
+            return self._tree.evaluate_leaves_with_gradients(weights, target_points)
 
 
 __all__ = [

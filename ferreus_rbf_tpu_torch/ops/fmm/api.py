@@ -64,7 +64,7 @@ import torch
 
 from ...config import FmmCompressionType, FmmParams
 from ...parallel import sharding
-from ...utils.timing import record_event, to_device, traced_stage
+from ...utils.timing import count, record_event, to_device, traced_stage
 from ..kernels import Kernel, KernelParams, make_kernel
 from . import cheb, m2l, tree as tree_mod
 from .near_field import (build, near_field, near_field_cells, near_field_cells_grad,
@@ -461,7 +461,9 @@ class FmmTree:
     def _bin_targets(self, target_points, reuse_key=None, with_grads=False):
         """Bucket targets by leaf into rows of width T; build the per-row
         u-list leaf-tile table, the w-list cell-tile table and the L2P
-        weights (with their derivatives when ``with_grads``)."""
+        weights (with their derivatives when ``with_grads``). A set binned
+        anew adds its targets to the counter ``fmm_targets_binned``; one
+        taken from the cache by ``reuse_key`` adds none."""
         if reuse_key is not None and reuse_key in self._target_cache:
             binned = self._target_cache[reuse_key]
             if with_grads and binned["l2p_resident"] and "l2p_dw" not in binned:
@@ -477,6 +479,7 @@ class FmmTree:
 
         targets = np.asarray(target_points, np.float64)
         n = targets.shape[0]
+        count("fmm_targets_binned", n)
         leaf_of_target = self.tree.points_to_leaves(targets)
         tcells_u, tinv = np.unique(leaf_of_target, return_inverse=True)
         order = np.argsort(tinv, kind="stable")
@@ -864,7 +867,8 @@ class FmmTree:
         """Upward pass (P2M + M2M) at f64."""
         fs = self._floats64
         self._weight_tiles = self._weight_tiles_of(self._as_weights(weights), torch.float64)
-        self._multipole = self._upward(self._weight_tiles, fs)
+        with traced_stage("fmm_upward"):
+            self._multipole = self._upward(self._weight_tiles, fs)
         self._local = None
 
     def set_local_coefficients(self, weights) -> None:

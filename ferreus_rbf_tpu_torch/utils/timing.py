@@ -27,9 +27,10 @@ while one is installed:
 The counters the port keeps: ``fgmres_iters`` (inner Krylov steps, both
 solver paths), ``m2l_operators`` (M2L reference operators compressed while a
 tree is built), ``m2l_cache_hits`` (M2L reference operators a tree took
-from ``ops/fmm/m2l.py``'s memo of compressed levels instead) and
-``h2d_bytes`` (bytes placed on the device from host memory by
-:func:`to_device`). A replayed CUDA graph runs no Python: the
+from ``ops/fmm/m2l.py``'s memo of compressed levels instead),
+``fmm_targets_binned`` (targets an FMM tree bins anew, not taken from its
+cache of target sets) and ``h2d_bytes`` (bytes placed on the device from
+host memory by :func:`to_device`). A replayed CUDA graph runs no Python: the
 stages inside a fused restart cycle are timed in its eager and capture
 runs only.
 
