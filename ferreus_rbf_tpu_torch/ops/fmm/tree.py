@@ -63,13 +63,44 @@ def calculate_tree_center_and_radius(extents: np.ndarray):
     return center, radius
 
 
+_AXIS_BITS = 16  # per anchor axis in a key; anchors stay below 2^MAXIMUM_LEVEL
+
+
+def _anchor_key(anchors: np.ndarray) -> np.ndarray:
+    """Level-free int64 key per anchor row: 16 bits per axis, axis 0 lowest."""
+    key = np.zeros(anchors.shape[0], dtype=np.int64)
+    for j in range(anchors.shape[1] - 1, -1, -1):
+        key = (key << _AXIS_BITS) | anchors[:, j].astype(np.int64)
+    return key
+
+
+def _unpack_anchors(keys: np.ndarray, d: int) -> np.ndarray:
+    """(n, d) int64 anchor rows of ``_anchor_key`` keys."""
+    mask = (1 << _AXIS_BITS) - 1
+    return np.stack([(keys >> (_AXIS_BITS * j)) & mask for j in range(d)], axis=1)
+
+
 def _pack(level: np.ndarray, anchors: np.ndarray) -> np.ndarray:
     """Unique int64 key per (level, anchor)."""
-    d = anchors.shape[1]
-    key = np.zeros(anchors.shape[0], dtype=np.int64)
-    for j in range(d - 1, -1, -1):
-        key = (key << 16) | anchors[:, j].astype(np.int64)
-    return (key << 5) | np.asarray(level, np.int64)
+    return (_anchor_key(anchors) << 5) | np.asarray(level, np.int64)
+
+
+def _unique_anchors(anchors: np.ndarray) -> np.ndarray:
+    """The distinct rows of (n, d) int64 anchors, as one 1-D sort of their
+    packed keys (``np.unique(axis=0)`` sorts rows as a void dtype, about
+    ten times slower). Rows come out in key order, not row order."""
+    if anchors.size and (anchors.min() < 0 or anchors.max() >> _AXIS_BITS):
+        raise ValueError(
+            f"an octree anchor does not fit the {_AXIS_BITS} bits of its key axis")
+    return _unpack_anchors(np.unique(_anchor_key(anchors)), anchors.shape[1])
+
+
+def _unique_pairs(pairs: np.ndarray) -> np.ndarray:
+    """``np.unique(pairs, axis=0)`` of (n, 2) cell-index pairs, as one 1-D
+    sort of ``(target << 32) | source``: cell indices are non-negative and
+    below 2^31, so the keys sort as the rows do."""
+    keys = np.unique((pairs[:, 0].astype(np.int64) << 32) | pairs[:, 1])
+    return np.stack([keys >> 32, keys & 0xFFFFFFFF], axis=1).astype(pairs.dtype, copy=False)
 
 
 @dataclasses.dataclass
@@ -255,16 +286,15 @@ def build_tree(
         if level == 0:
             cell_anchors = np.zeros((1, d), dtype=np.int64)
         else:
-            sel = a[active]
-            cell_anchors = np.unique(sel, axis=0) if sel.size else np.zeros((0, d), np.int64)
+            cell_anchors = _unique_anchors(a[active])
         if store_empty_leaves and level > 0:
-            # add all siblings: parent anchors * 2 + all offsets
-            parents = np.unique(cell_anchors >> 1, axis=0)
+            # add all siblings: parent anchors * 2 + all offsets (distinct
+            # parents have distinct children, so no second unique)
+            parents = _unique_anchors(cell_anchors >> 1)
             offs = np.array(
                 [[(i >> j) & 1 for j in range(d)] for i in range(1 << d)], np.int64
             )
             cell_anchors = (parents[:, None, :] * 2 + offs[None, :, :]).reshape(-1, d)
-            cell_anchors = np.unique(cell_anchors, axis=0)
         lv = np.full(cell_anchors.shape[0], level, np.int64)
         keys_list.append(_pack(lv, cell_anchors))
         anchors_list.append(cell_anchors)
@@ -405,8 +435,8 @@ def _build_interaction_lists(tree: Octree) -> None:
         tree.anchors, tree.levels, tree.parent, tree.children, tree.is_leaf,
         tree.has_points)
     tree.v_pairs = v
-    tree.u_pairs = np.unique(u, axis=0)
-    tree.w_pairs = np.unique(w, axis=0) if w.size else w
+    tree.u_pairs = _unique_pairs(u)
+    tree.w_pairs = _unique_pairs(w)
     tree.x_pairs = tree.w_pairs[:, ::-1].copy()
 
 
