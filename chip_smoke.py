@@ -162,6 +162,8 @@ import time
 import numpy as np
 import torch
 
+from benchmark.reference.roofline import G_FLOPS, HBM_BYTES_S, PEAK_FLOPS, PHI_FLOPS
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "ferreus_rbf_tpu_torch/csrc/near_field.cu"
 REPLACES = {
@@ -191,24 +193,6 @@ CONFIG4_BOUND = 1e-4
 # the Laplacian through bbfmm against a dense sum, relative to max |want|:
 # the JAX package's bound (tests/test_api_surface.py)
 BBFMM_BOUND = 1e-2
-
-# H100 SXM published peaks (NVIDIA data sheet): non-tensor FLOP/s by type
-# and HBM3 bytes/s. A kernel's bound is the larger of its flops over the
-# peak and its bytes (each operand read once, each output written once)
-# over the memory rate.
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-HBM_BYTES_S = 3.35e12
-# Flops per (target, source) pair of phi and of the gradient factor g,
-# counting a sqrt, log or divide as ONE flop (they are multi-instruction
-# sequences on the card, so the bound is a lower bound) and an FMA as two;
-# spheroidal counts its cheaper (near) branch.
-PHI_FLOPS = {"LinearRbf": 1, "ThinPlateSplineRbf": 3, "CubicRbf": 2, "Spheroidal3Rbf": 3,
-             "Spheroidal5Rbf": 3, "Spheroidal7Rbf": 3, "Spheroidal9Rbf": 3,
-             "Laplacian": 2, "OneOverR2": 1, "OneOverR4": 2}
-G_FLOPS = {"LinearRbf": 1, "ThinPlateSplineRbf": 2, "CubicRbf": 1, "Spheroidal3Rbf": 1,
-           "Spheroidal5Rbf": 1, "Spheroidal7Rbf": 1, "Spheroidal9Rbf": 1,
-           "Laplacian": 2, "OneOverR2": 2, "OneOverR4": 3}
-
 
 def log(msg):
     print(msg, flush=True)
@@ -1195,20 +1179,6 @@ def phase_config5(nf, dev, rbfi):
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
 
-def synthetic_sd(n, seed=11):
-    """Config 4's data, a copy of ``bench.py``'s ``_synthetic_sd``:
-    signed-distance samples in a volumetric shell around a bumpy unit
-    sphere (zero level = the bumpy sphere), radii continuous in [0.7, 1.3]."""
-    rng = np.random.default_rng(seed)
-    dirs = rng.normal(size=(n, 3))
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    bump = 1.0 + 0.15 * np.sin(4 * dirs[:, 0]) * np.cos(3 * dirs[:, 1])
-    radii = 0.7 + 0.6 * rng.random(n)
-    pts = dirs * (bump * radii)[:, None]
-    sd = (radii - 1.0) * bump
-    return pts, sd
-
-
 def dense_oracle(rbfi, idx, dev):
     """The fitted interpolant at sources ``idx`` in dense f64 on the card
     (kernel sum + nugget + drift; ``bench.py``'s oracle): a host array."""
@@ -1282,6 +1252,7 @@ def list_builders(rbfi):
 def phase_config4(frt, nf, timing, dev, n=1_000_000):
     """Config 4: the 1M-point LinearRbf signed-distance fit, default Params."""
     from ferreus_rbf_tpu_torch.ops.fmm import api
+    from ferreus_rbf_tpu_torch.scripts.fit_at_scale import synthetic_sd
 
     pts, sd = synthetic_sd(n, seed=11)
     settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)

@@ -45,10 +45,11 @@ def main():
     sys.path.insert(0, os.getcwd())
     import ferreus_rbf_tpu_torch as frt
     from ferreus_rbf_tpu_torch.ops.fmm import near_field as nf
+    from ferreus_rbf_tpu_torch.scripts.fit_at_scale import synthetic_sd
     from ferreus_rbf_tpu_torch.solver import iterative
     from ferreus_rbf_tpu_torch.utils import timing
 
-    # the data of this script's own chip_smoke.py, whichever tree is timed
+    # the albatite data of this script's own chip_smoke.py, whichever tree is timed
     spec = importlib.util.spec_from_file_location("chip_smoke_data",
                                                   os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -64,7 +65,7 @@ def main():
     if data == "albatite":
         pts, sd, _, settings = smoke.albatite_data(frt)
     elif data == "config4":
-        pts, sd = smoke.synthetic_sd(1_000_000, seed=11)
+        pts, sd = synthetic_sd(1_000_000, seed=11)
         settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
     else:
         raise SystemExit(f"config4_fit.py takes no argument or 'albatite', got {data!r}")

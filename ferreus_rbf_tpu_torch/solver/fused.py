@@ -153,9 +153,8 @@ class FusedSystem:
         self.ddm = ddm
         self.factor_bytes = ddm.factor_bytes  # the same on every rank
         mesh = system.fmm_tree.mesh
-        self.stats = {"graphs": 0, "cycles": 0, "replays": 0,
-                      "host_pulls": 0, "inner_iterations": 0, "masked_steps": 0,
-                      "graph_gate": None}
+        self.stats = {"graphs": 0, "cycles": 0, "replays": 0, "host_pulls": 0,
+                      "masked_steps": 0, "graph_gate": None}
         if mesh is not None and not mesh.capturable:
             self.stats["graph_gate"] = "gloo collectives cannot be captured"
         self._graphs = {}
@@ -367,7 +366,6 @@ def fgmres_fused(
         with traced_stage("fgmres_cycle"):
             x, r, stats = fs.cycle(prec, tol_abs, mi, b, x, r, beta, tolerance.tolerance)
         res_g, res_r, jf = float(stats[0]), float(stats[1]), int(stats[2])
-        fs.stats["inner_iterations"] += jf
         count("fgmres_iters", jf)
         for j in range(jf):
             res = float(stats[3 + j])

@@ -44,7 +44,7 @@ import torch
 
 # imported before the working directory goes first on sys.path: this
 # script's chip_smoke.py, whichever tree's package it times
-from chip_smoke import cuda_ms, synthetic_sd, tree_legs
+from chip_smoke import cuda_ms, tree_legs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUDGETS = [64, 128, 256, 512, 1024, 2048, 1 << 30]
@@ -59,6 +59,7 @@ def main():
     from ferreus_rbf_tpu_torch.ops.fmm import near_field as nf
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
     from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType
+    from ferreus_rbf_tpu_torch.scripts.fit_at_scale import synthetic_sd
 
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -80,6 +80,7 @@ def main():
     from ferreus_rbf_tpu_torch.ops.fmm.api import FmmTree
     from ferreus_rbf_tpu_torch.ops.kernels import KernelParams, KernelType
     from ferreus_rbf_tpu_torch.parallel import sharding
+    from ferreus_rbf_tpu_torch.scripts.fit_at_scale import synthetic_sd
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -110,7 +111,7 @@ def main():
         return fit_tree(pts, settings)
 
     def config4():
-        pts, _ = smoke.synthetic_sd(1_000_000, seed=11)
+        pts, _ = synthetic_sd(1_000_000, seed=11)
         return fit_tree(pts, frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear))
 
     for name, make in (("config2", config2), ("albatite", albatite), ("config4_1M", config4)):

@@ -79,6 +79,7 @@ def fit_rank(rank, world):
     import ferreus_rbf_tpu_torch as frt
     from ferreus_rbf_tpu_torch import parallel
     from ferreus_rbf_tpu_torch.ops.fmm import near_field as nf
+    from ferreus_rbf_tpu_torch.scripts.fit_at_scale import synthetic_sd
     from ferreus_rbf_tpu_torch.solver import ddm as ddm_mod
     from ferreus_rbf_tpu_torch.utils import timing
 
@@ -86,7 +87,7 @@ def fit_rank(rank, world):
                             world_size=world, timeout=datetime.timedelta(seconds=600))
     mesh = parallel.make_mesh(world)
     dev = mesh.device
-    pts, sd = smoke.synthetic_sd(N, seed=11)
+    pts, sd = synthetic_sd(N, seed=11)
     settings = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
     refs_path = os.path.join(OUT, "refs.npz")
     if rank == 0:

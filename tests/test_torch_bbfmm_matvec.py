@@ -4,30 +4,28 @@ on the CPU at 3,000 uniform points with leaves of at most 32 points, so
 that the tree has depth 3 and M2L levels; and on the card at config 2's
 own size (the ``cuda`` test, which skips without a card).
 
-The reference is ``plain_kernel_sum.py``, a dense float64 sum that imports
-no kernel of the port. Tolerance: ``TOL`` of the largest |sum| of all
-columns, for the FMM's order-5 Chebyshev truncation (read here: 2.6e-05 at
-order 5, 1.0e-04 at order 4, 6.2e-04 at order 3, so an order-3 tree fails
-it). Results of one tree and one block of weights are compared bit for
-bit; a block of 8 columns against 8 calls of one column within 1e-13 of
-the largest |value| (the same sums, batched); the port against the JAX
-package's ``bbfmm.FmmTree`` on the same points, weights and settings within
-1e-12 relative, as ``test_torch_bbfmm.py`` holds its adaptive trees (the
-same float64 arithmetic summed in other orders; ACA picks the same pivots
-in both, so the cell's compression is compared as it runs).
+The reference is the benchmark's ``reference/kernel_sum.py``, a dense
+float64 sum that imports no kernel of the port. Tolerance: ``TOL`` of the
+largest |sum| of all columns, for the FMM's order-5 Chebyshev truncation
+(read here: 2.6e-05 at order 5, 1.0e-04 at order 4, 6.2e-04 at order 3, so
+an order-3 tree fails it). Results of one tree and one block of weights are
+compared bit for bit; a block of 8 columns against 8 calls of one column
+within 1e-13 of the largest |value| (the same sums, batched); the port
+against the JAX package's ``bbfmm.FmmTree`` on the same points, weights and
+settings within 1e-12 relative, as ``test_torch_bbfmm.py`` holds its
+adaptive trees (the same float64 arithmetic summed in other orders; ACA
+picks the same pivots in both, so the cell's compression is compared as it
+runs).
 """
-
-import os
-
 
 import numpy as np
 import pytest
 import torch
 
+from benchmark.reference.kernel_sum import kernel_sum
 from ferreus_rbf_tpu import bbfmm as jbb
 from ferreus_rbf_tpu_torch import bbfmm
 from ferreus_rbf_tpu_torch.utils import timing
-from plain_kernel_sum import kernel_sum
 
 N, P, NRHS = 3000, 5, 8
 TOL = 5e-5
@@ -96,16 +94,6 @@ def test_matches_the_jax_package(case):
     got = case["got"]
     assert got.shape == want.shape == (N, NRHS)
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
-
-
-def test_plain_sum_is_the_benchmarks_frozen_copy():
-    """``plain_kernel_sum.py`` and the benchmark's ``reference/kernel_sum.py``
-    are one file: a change to either is made to both."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    copies = [os.path.join(here, "plain_kernel_sum.py"),
-              os.path.join(here, os.pardir, "benchmark", "reference", "kernel_sum.py")]
-    first, second = (open(f, "rb").read() for f in copies)
-    assert first == second
 
 
 def test_order_3_tree_exceeds_the_tolerance(case):

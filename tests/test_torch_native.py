@@ -76,9 +76,11 @@ def test_native_lists_match_numpy_and_jax(d, store_empty):
     assert tree.v_pairs.shape == ref_v.shape and _rows(tree.v_pairs) == _rows(ref_v)
     if store_empty and d > 1:
         assert ref_v.shape[0] < ref.v_pairs.shape[0]  # empty sources were dropped
-    jv, ju, jw = jnative.build_interaction_lists(
+    lists = jnative.build_interaction_lists(
         tree.anchors, tree.levels, tree.parent, tree.children, tree.is_leaf,
         tree.has_points, tree.depth)
+    assert lists is not None, "the JAX package's native library did not build or load"
+    jv, ju, jw = lists
     np.testing.assert_array_equal(tree.v_pairs, jv)
     np.testing.assert_array_equal(tree.u_pairs, np.unique(ju, axis=0))
     np.testing.assert_array_equal(tree.w_pairs, np.unique(jw, axis=0))

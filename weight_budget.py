@@ -81,8 +81,8 @@ def main():
         raise SystemExit("weight_budget.py needs a CUDA card (torch.cuda.is_available() is false)")
     sys.path.insert(0, HERE)
     import ferreus_rbf_tpu_torch as frt
-    from chip_smoke import synthetic_sd
     from ferreus_rbf_tpu_torch.ops.fmm import api
+    from ferreus_rbf_tpu_torch.scripts.fit_at_scale import synthetic_sd
     from ferreus_rbf_tpu_torch.utils import timing
 
     dev = torch.device("cuda", 0)
