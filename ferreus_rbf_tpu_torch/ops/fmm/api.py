@@ -1,11 +1,16 @@
 """FmmTree: the black-box FMM evaluator on torch tensors.
 
 Port of the single-device ``FmmTree`` of ``ferreus_rbf_tpu/ops/fmm/api.py``.
-The octree, interaction lists, M2L operators and the bucket layout are
-built once on the host in numpy (``tree.py``, ``cheb.py``, ``m2l.py``) and
-moved to ``device`` as flat tensors; the compressed M2L levels come from
+The octree, interaction lists, M2L operators and the source bucket layout
+are built once on the host in numpy (``tree.py``, ``cheb.py``, ``m2l.py``)
+and moved to ``device`` as flat tensors; the compressed M2L levels come from
 ``m2l``'s memo where an earlier tree of the same kernel, order, compression,
-epsilon and cell length built them. One matvec is
+epsilon and cell length built them. A target set is binned on ``device``:
+its (n, d) coordinates are copied there once (from page-locked memory on a
+card, so the copy waits for no pass before it), and its leaves (a search
+of each level's sorted leaf keys), rows, u- and w-list tables and inverse
+map are built with torch ops, with one read of their sizes back to the
+host (``_bin_targets``). One matvec is
 
 * upward pass: P2M as one batched matmul against the leaf anterpolation
   weights, then M2M per level (one einsum + index_add);
@@ -129,15 +134,6 @@ def resolve_device(device=None) -> torch.device:
 def _next_pow2(n) -> int:
     n = int(n)
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
-
-
-def _concat_ranges(starts, lens):
-    """Vectorised concat of [arange(s, s+l) for s, l in zip(starts, lens)]."""
-    total = int(lens.sum())
-    if total == 0:
-        return np.zeros(0, np.int64)
-    off = np.cumsum(lens) - lens
-    return np.arange(total, dtype=np.int64) - np.repeat(off, lens) + np.repeat(starts, lens)
 
 
 class FmmTree:
@@ -337,10 +333,6 @@ class FmmTree:
         self.p2l_tab = np.full((self.p2l_cells.size, ux), nsl, np.int32)
         self.p2l_tab[np.arange(ux)[None, :] < p2l_cnt[:, None]] = src_rows[keep][order]
 
-        # --- u/w pair lookup sorted by target cell ------------------------
-        self._u_sorted = t.u_pairs[np.argsort(t.u_pairs[:, 0], kind="stable")]
-        self._w_sorted = t.w_pairs[np.argsort(t.w_pairs[:, 0], kind="stable")]
-
         all_cells = np.arange(t.num_cells)
         self.cell_centers = t.cell_centers(all_cells)
         self.cell_lengths = t.cell_lengths(all_cells)
@@ -418,8 +410,8 @@ class FmmTree:
         # each matvec by one gather). Tile nw is the zero sentinel. Above
         # the node-tile budget the tree is gated: no tiles, and the M2P
         # computes the nodes of the listed cells while it stages them.
-        wc = self._w_sorted[:, 1]
-        wc = np.unique(wc[self.tree.has_points[wc]]) if wc.size else wc
+        wc = self.tree.w_pairs[:, 1]
+        wc = np.unique(wc[self.tree.has_points[wc]])
         nw = int(wc.size)
         self.m2p_cells = nw
         self.nodetile_bytes = (nw + 1) * d * self.nnodes * (8 + 4)  # f64 tiles + f32 copy
@@ -434,7 +426,7 @@ class FmmTree:
             "p2m_bytes": self.p2m_bytes, "p2m_resident": "p2m_w" in self._floats64,
             "m2p_cells": self.m2p_cells, "nodetile_bytes": self.nodetile_bytes,
             "m2p_tiles_gated": self._m2p_tiles_gated})
-        self._cell_to_wtile = None
+        cell_to_wtile = None
         if nw:
             node_xyz = cheb.scale_nodes_to_cell(
                 self.nodes_nd, cell_centers_c[wc], self.cell_lengths[wc])  # (nw, P, d)
@@ -442,9 +434,52 @@ class FmmTree:
             node_tiles[:nw] = node_xyz.transpose(0, 2, 1)
             self._floats64["node_tiles"] = self._tensor(node_tiles)
             self._dev["wtile_cells"] = self._tensor(wc, long)
-            cmap = np.full(self.tree.num_cells, nw, np.int32)
-            cmap[wc] = np.arange(nw, dtype=np.int32)
-            self._cell_to_wtile = cmap
+            cell_to_wtile = np.full(self.tree.num_cells, nw, np.int32)
+            cell_to_wtile[wc] = np.arange(nw, dtype=np.int32)
+        self._build_bin_state(cell_to_wtile)
+
+    def _build_bin_state(self, cell_to_wtile):
+        """What target binning reads on the device (``self._bin``): the
+        tree's lower corner and deepest cell side, the sorted packed keys
+        (``tree._pack``) of each level's leaves beside their cells (levels
+        without leaves left out), and the u- and w-lists as CSR by target
+        cell (``cnt`` and ``off`` per cell, ``flat`` with the table's
+        sentinel appended). A u-list holds the source rows of the neighbour leaves with points,
+        sentinel ``nsl``; a w-list the node tiles of the far cells with
+        points (``cell_to_wtile``), sentinel ``nw``, or, gated, their cell
+        ids, sentinel ``num_cells``; no w-list table without either."""
+        t = self.tree
+        long = torch.int64
+
+        def csr(pairs, values, keep, sentinel):
+            # stable by target cell: each cell's entries in list order
+            order = np.argsort(pairs[:, 0], kind="stable")
+            keep = keep[order]
+            cnt = np.bincount(pairs[order, 0][keep], minlength=t.num_cells)
+            return {"cnt": self._tensor(cnt, long), "off": self._tensor(np.cumsum(cnt) - cnt, long),
+                    "flat": self._tensor(np.append(values[order][keep], sentinel), torch.int32)}
+
+        src_rows = self.cell_to_src_row[t.u_pairs[:, 1]]
+        far = t.w_pairs[:, 1]
+        levels = []
+        for level, (keys, cells) in enumerate(t._level_key_sorted):
+            leaf = t.is_leaf[cells]
+            if leaf.any():
+                levels.append((level, self._tensor(keys[leaf], long),
+                               self._tensor(cells[leaf], long)))
+        w = None
+        if self._m2p_tiles_gated:
+            w = csr(t.w_pairs, far, t.has_points[far], t.num_cells)
+        elif cell_to_wtile is not None:
+            w = csr(t.w_pairs, cell_to_wtile[far], t.has_points[far], self._m2p_nw)
+        self._bin = {
+            "lo": self._tensor(t.center - t.radius),
+            "side": self._tensor(np.full(self.d, 2.0 * t.radius / (1 << t.depth))),
+            "center": self._tensor(self._world_center),
+            "levels": levels,
+            "u": csr(t.u_pairs, src_rows, src_rows >= 0, self.nsl),
+            "w": w,
+        }
 
     def _floats(self, dtype):
         if dtype == torch.float64:
@@ -459,11 +494,12 @@ class FmmTree:
 
     # ------------------------------------------------------------ targets
     def _bin_targets(self, target_points, reuse_key=None, with_grads=False):
-        """Bucket targets by leaf into rows of width T; build the per-row
-        u-list leaf-tile table, the w-list cell-tile table and the L2P
-        weights (with their derivatives when ``with_grads``). A set binned
+        """Bucket targets by leaf into rows of width T, on the tree's device
+        (:meth:`_binned_tables`), and make the L2P weights (with their
+        derivatives when ``with_grads``) within the budget. A set binned
         anew adds its targets to the counter ``fmm_targets_binned``; one
-        taken from the cache by ``reuse_key`` adds none."""
+        taken from the cache by ``reuse_key`` adds none, and reads nothing
+        back from the device."""
         if reuse_key is not None and reuse_key in self._target_cache:
             binned = self._target_cache[reuse_key]
             if with_grads and binned["l2p_resident"] and "l2p_dw" not in binned:
@@ -477,91 +513,12 @@ class FmmTree:
                                                  "l2p_resident": False, "kept": True})
             return binned
 
-        targets = np.asarray(target_points, np.float64)
-        n = targets.shape[0]
-        count("fmm_targets_binned", n)
-        leaf_of_target = self.tree.points_to_leaves(targets)
-        tcells_u, tinv = np.unique(leaf_of_target, return_inverse=True)
-        order = np.argsort(tinv, kind="stable")
-        counts = np.bincount(tinv, minlength=tcells_u.size)
-        offsets = np.concatenate([[0], np.cumsum(counts)])
-        nc = tcells_u.size
-
-        tmax = self._tmax
-        nrow_per_cell = -(-counts // tmax)
-        ntl = int(nrow_per_cell.sum())
-        rcell = np.repeat(np.arange(nc), nrow_per_cell)  # row -> cell (in tcells_u)
-        rrank = _concat_ranges(np.zeros(nc, np.int64), nrow_per_cell)
-        rstart = offsets[rcell] + rrank * tmax
-        rlen = np.minimum(counts[rcell] - rrank * tmax, tmax)
-        slot = np.arange(tmax)
-        rmask = slot[None, :] < rlen[:, None]  # (ntl, tmax)
-        tgt_idx = np.zeros((ntl, tmax), np.int64)  # pad slots read target 0
-        tgt_idx[rmask] = order[(rstart[:, None] + slot[None, :])[rmask]]
-        tcells = tcells_u[rcell]
-
-        t = self.tree
-        # u list -> neighbour source-leaf rows per cell
-        lo_u = np.searchsorted(self._u_sorted[:, 0], tcells_u)
-        hi_u = np.searchsorted(self._u_sorted[:, 0], tcells_u, side="right")
-        pair_pos = _concat_ranges(lo_u, hi_u - lo_u)
-        pair_cell = np.repeat(np.arange(nc), hi_u - lo_u)
-        srows_all = self.cell_to_src_row[self._u_sorted[pair_pos, 1]]
-        keep = srows_all >= 0
-        flat_srows = srows_all[keep]
-        nbr_cnt_c = np.bincount(pair_cell[keep], minlength=nc)
-        nbr_off_c = np.cumsum(nbr_cnt_c) - nbr_cnt_c
-        u_max = max(int(nbr_cnt_c.max()) if nc else 0, 1)
-        nbr_tab = np.full((ntl, u_max), self.nsl, np.int32)
-        nbr_cnt_row = nbr_cnt_c[rcell]
-        nmask = np.arange(u_max)[None, :] < nbr_cnt_row[:, None]
-        npos = nbr_off_c[rcell][:, None] + np.arange(u_max)[None, :]
-        nbr_tab[nmask] = flat_srows[npos[nmask]]
-
-        # w list -> (Uw, rows) table and per-row counts: node-tile ids
-        # (sentinel nw), or global cell ids (sentinel num_cells) when gated
-        wtab = wcnt = None
-        if self._cell_to_wtile is not None or self._m2p_tiles_gated:
-            lo_w = np.searchsorted(self._w_sorted[:, 0], tcells_u)
-            hi_w = np.searchsorted(self._w_sorted[:, 0], tcells_u, side="right")
-            wpos = _concat_ranges(lo_w, hi_w - lo_w)
-            wcell = np.repeat(np.arange(nc), hi_w - lo_w)
-            wcat = self._w_sorted[wpos, 1]
-            wkeep = t.has_points[wcat]
-            wcnt_c = np.bincount(wcell[wkeep], minlength=nc)
-            if wcnt_c.size and wcnt_c.max() > 0:
-                woff_c = np.cumsum(wcnt_c) - wcnt_c
-                uw_max = int(wcnt_c.max())
-                gated = self._m2p_tiles_gated
-                wtab_r = np.full((ntl, uw_max), t.num_cells if gated else self._m2p_nw,
-                                 np.int32)
-                wcnt_row = wcnt_c[rcell]
-                wmask = np.arange(uw_max)[None, :] < wcnt_row[:, None]
-                wpos2 = woff_c[rcell][:, None] + np.arange(uw_max)[None, :]
-                wcells = wcat[wkeep][wpos2[wmask]]
-                wtab_r[wmask] = wcells if gated else self._cell_to_wtile[wcells]
-                wtab = self._tensor(wtab_r.T)
-                wcnt = self._tensor(wcnt_row.astype(np.int32))
-
-        # un-bucketing is a gather through the inverse (row, slot) table
-        rr, ss = np.nonzero(rmask)
-        inv_flat = np.zeros(n, np.int64)
-        inv_flat[tgt_idx[rr, ss]] = rr * tmax + ss
-
-        binned = {
-            "ntargets": n,
-            "tcells": self._tensor(tcells, torch.int64),
-            # live target slots per row (the leading ones)
-            "tcnt": self._tensor(rlen.astype(np.int32)),
-            "nbr": self._tensor(nbr_tab.T),
-            "wtab": wtab,
-            "wcnt": wcnt,
-            "inv_flat": self._tensor(inv_flat),
-            # (rows, T, d) target rows; pad slots repeat target 0
-            torch.float64: {"tpts": self._tensor((targets - self._world_center)[tgt_idx])},
-            # L2P weights kept only within the budget (else per row chunk)
-            "l2p_resident": self._l2p_fits(ntl, with_grads),
-        }
+        # the binning's transients are freed when it returns, before the
+        # L2P table is made
+        binned = self._binned_tables(np.ascontiguousarray(target_points, np.float64))
+        n, ntl = binned["ntargets"], binned["tcnt"].shape[0]
+        # L2P weights kept only within the budget (else per row chunk)
+        binned["l2p_resident"] = self._l2p_fits(ntl, with_grads)
         record_event("fmm_targets", {"targets": n, "rows": ntl,
                                      "l2p_resident": binned["l2p_resident"]})
         if binned["l2p_resident"]:
@@ -573,6 +530,106 @@ class FmmTree:
         if reuse_key is not None:
             self._target_cache[reuse_key] = binned
         return binned
+
+    def _binned_tables(self, targets):
+        """The row tables of an (n, d) host target set, built with torch ops
+        on the tree's device from one copy of the targets:
+
+        * ``tcells`` (rows,) int64: each row's leaf, leaves ascending, a
+          leaf with more than T targets on consecutive rows;
+        * ``tcnt`` (rows,) int32: live target slots per row (the leading
+          ones), targets in input order within a leaf;
+        * ``nbr`` (U, rows) int32: each row's u-list source tiles, padded
+          with the sentinel tile ``nsl``;
+        * ``wtab`` (Uw, rows) int32 and ``wcnt`` (rows,) int32: its w-list
+          tiles (cell ids when gated) and their count, or None where no
+          row has a w-list;
+        * ``inv_flat`` (n,) int64: each target's row * T + slot;
+        * ``tpts`` (rows, T, d) float64 under ``torch.float64``: the
+          targets less the tree centre, pad slots repeating target 0.
+
+        One host read (``fmm_bin_host_syncs``) brings back, together, the
+        first target outside the tree (``PointOutsideTreeError``) and the
+        tables' sizes."""
+        b, dev, tmax = self._bin, self.device, self._tmax
+        targets = torch.from_numpy(targets)
+        if dev.type == "cuda":
+            # from page-locked memory the copy and the launches below queue
+            # behind the pass before them instead of waiting for it
+            targets = targets.pin_memory()
+        targets = to_device(targets, dev)
+        n = targets.shape[0]
+        count("fmm_targets_binned", n)
+        leaf, first_bad = self._target_leaves(targets)
+        # leaves ascending, each leaf's targets in input order
+        sorted_leaf, order = torch.sort(leaf, stable=True)
+        cells = torch.arange(self.tree.num_cells, device=dev)
+        off_c = torch.searchsorted(sorted_leaf, cells)
+        cnt_c = torch.searchsorted(sorted_leaf, cells, right=True) - off_c
+        nrow_c = (cnt_c + tmax - 1) // tmax
+        row_off_c = torch.cumsum(nrow_c, 0) - nrow_c
+        live = cnt_c > 0
+        uw = (b["w"]["cnt"] * live).max() if b["w"] is not None else first_bad.new_zeros(())
+        count("fmm_bin_host_syncs")
+        first_bad, ntl, u_max, uw_max = torch.stack(
+            [first_bad, nrow_c.sum(), (b["u"]["cnt"] * live).max(), uw]).tolist()
+        if first_bad < n:
+            raise PointOutsideTreeError(first_bad)
+
+        rcell = torch.repeat_interleave(nrow_c, output_size=ntl)  # row -> its leaf
+        rrank = torch.arange(ntl, device=dev) - row_off_c[rcell]
+        rlen = (cnt_c[rcell] - rrank * tmax).clamp_(max=tmax)
+        # each target's flat (row, slot): its leaf's first row, then its rank
+        flat = row_off_c[sorted_leaf] * tmax + torch.arange(n, device=dev) - off_c[sorted_leaf]
+        inv_flat = torch.empty_like(flat).scatter_(0, order, flat)
+        tgt_idx = torch.zeros(ntl * tmax, dtype=torch.int64, device=dev).scatter_(0, flat, order)
+        tpts = targets[tgt_idx.view(ntl, tmax)]  # pad slots read target 0
+        tpts -= b["center"]
+
+        def table(lists, width):
+            """(width, rows) entries of each row's list, padded with the
+            list's sentinel, and the rows' counts."""
+            cnt = lists["cnt"][rcell]
+            slot = torch.arange(width, device=dev)[:, None]
+            pos = torch.where(slot < cnt, lists["off"][rcell] + slot, lists["flat"].numel() - 1)
+            return lists["flat"][pos], cnt.int()
+
+        nbr = table(b["u"], max(u_max, 1))[0]
+        wtab, wcnt = table(b["w"], uw_max) if uw_max else (None, None)
+        return {"ntargets": n, "tcells": rcell, "tcnt": rlen.int(), "nbr": nbr, "wtab": wtab,
+                "wcnt": wcnt, "inv_flat": inv_flat, torch.float64: {"tpts": tpts}}
+
+    def _target_leaves(self, targets):
+        """Each target's leaf, as ``linear_tree.rs:487-520`` finds it: the
+        deepest level whose cell holding the target exists and is a leaf,
+        from a search of each level's sorted leaf keys (a leaf has no cells
+        below it, so at most one level finds one; targets on the tree's max
+        faces count as inside); and, as a device scalar, the first target
+        outside the tree or on no leaf (n if none)."""
+        b = self._bin
+        depth = self.tree.depth
+        top = float(1 << depth)
+        n = targets.shape[0]
+        # divided by a device tensor: true division, as on the host (a CUDA
+        # division by a host scalar multiplies by its reciprocal)
+        f = torch.floor((targets - b["lo"]) / b["side"])
+        inside = ((f >= 0) & (f <= top)).all(1)  # on a max face: anchor 2^depth, inside
+        anchors = torch.where(inside[:, None], f.clamp(max=top - 1), 0.0).long()
+        bits = tree_mod._AXIS_BITS
+        packed = torch.zeros((n,), dtype=torch.int64, device=self.device)
+        for j in range(self.d - 1, -1, -1):  # ``tree._anchor_key``
+            packed = (packed << bits) | anchors[:, j]
+        leaf = torch.full_like(packed, -1)
+        for level, keys, cells in b["levels"]:
+            # the anchors >> s of every axis at once: shift the packed key,
+            # then clear the bits each axis took from the one above it
+            s = depth - level
+            axis_mask = sum(((1 << (bits - s)) - 1) << (bits * j) for j in range(self.d))
+            key = (((packed >> s) & axis_mask) << 5) | level  # ``tree._pack``
+            pos = torch.searchsorted(keys, key).clamp_(max=keys.numel() - 1)
+            leaf = torch.where(keys[pos] == key, cells[pos], leaf)
+        bad = torch.where((leaf < 0) | ~inside, torch.arange(n, device=self.device), n)
+        return leaf, torch.cat([bad, bad.new_full((1,), n)]).min()
 
     def _l2p_fits(self, rows, with_grads) -> bool:
         """Whether the L2P tables of ``rows`` target rows stay within

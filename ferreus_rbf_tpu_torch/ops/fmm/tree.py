@@ -1,6 +1,8 @@
 """Host-side linear octree build + interaction lists as flat index arrays.
 
-Copy of ``ferreus_rbf_tpu/ops/fmm/tree.py``. The interaction lists come
+Copy of ``ferreus_rbf_tpu/ops/fmm/tree.py``, less its target binning
+(``Octree.points_to_leaves``; the port bins on the tree's device in
+``api.py``). The interaction lists come
 from the port's native builder (``csrc/treebuild.cpp``, compiled with g++
 at first use by ``ferreus_rbf_tpu_torch.native``; a failed build raises),
 or from the numpy builder, ``_build_interaction_lists_numpy``, its plain
@@ -21,8 +23,9 @@ padded device plan. Semantics preserved:
   children; empty children become leaves,
 * u/v/w/x list definitions as documented at ``linear_tree.rs:189-267``,
 * tree extents: floor/ceil of the AABB with +1e-3 radius epsilon
-  (``morton.rs:349-373``); target binning walks up to the deepest existing
-  leaf and reports out-of-tree points (``linear_tree.rs:487-520``).
+  (``morton.rs:349-373``); target binning (``api.FmmTree._target_leaves``)
+  finds the deepest existing leaf over the per-level sorted keys kept here
+  and reports out-of-tree points (``linear_tree.rs:487-520``).
 
 Cell identity: key = pack(level, anchor) into int64 (16 bits/axis, 5 bits
 level) — plain arithmetic, no interleaved Morton lookups needed because
@@ -165,46 +168,6 @@ class Octree:
         pos = np.clip(pos, 0, sorted_keys.size - 1)
         hit = sorted_keys[pos] == keys
         return np.where(hit, sorted_idx[pos], -1)
-
-    # -- target binning ---------------------------------------------------
-    def points_to_leaves(self, points: np.ndarray) -> np.ndarray:
-        """Deepest existing leaf containing each point; raises if outside.
-
-        Vectorised walk-up: compute each point's anchor at every level and
-        take the deepest level whose cell exists *and is a leaf*
-        (``linear_tree.rs:487-520`` semantics, including the
-        PointOutsideTree error).
-        """
-        pts = np.asarray(points, np.float64)
-        n = pts.shape[0]
-        lo = self.center - self.radius
-
-        deepest = np.full(n, -1, dtype=np.int64)
-        anchors_max = np.floor(
-            (pts - lo) / (2.0 * self.radius / (1 << self.depth))
-        ).astype(np.int64)
-        inside = np.all((anchors_max >= 0) & (anchors_max < (1 << self.depth)), axis=1)
-        # allow boundary-sitting points (exactly on the max face)
-        at_edge = np.all(
-            (anchors_max >= 0) & (anchors_max <= (1 << self.depth)), axis=1
-        ) & np.any(anchors_max == (1 << self.depth), axis=1)
-        anchors_max = np.minimum(anchors_max, (1 << self.depth) - 1)
-        inside = inside | at_edge
-
-        for level in range(self.depth, -1, -1):
-            unresolved = deepest < 0
-            if not np.any(unresolved):
-                break
-            anc = anchors_max[unresolved] >> (self.depth - level)
-            idx = self.lookup(level, anc)
-            leaf_hit = (idx >= 0) & self.is_leaf[np.maximum(idx, 0)]
-            sub = np.nonzero(unresolved)[0]
-            deepest[sub[leaf_hit]] = idx[leaf_hit]
-
-        bad = (deepest < 0) | ~inside
-        if np.any(bad):
-            raise PointOutsideTreeError(int(np.nonzero(bad)[0][0]))
-        return deepest
 
 
 def build_tree(

@@ -29,8 +29,10 @@ solver paths), ``m2l_operators`` (M2L reference operators compressed while a
 tree is built), ``m2l_cache_hits`` (M2L reference operators a tree took
 from ``ops/fmm/m2l.py``'s memo of compressed levels instead),
 ``fmm_targets_binned`` (targets an FMM tree bins anew, not taken from its
-cache of target sets) and ``h2d_bytes`` (bytes placed on the device from
-host memory by :func:`to_device`). A replayed CUDA graph runs no Python: the
+cache of target sets), ``fmm_bin_host_syncs`` (host reads of device values
+while a tree bins a target set on its device: one per set binned anew, none
+for a cached one) and ``h2d_bytes`` (bytes placed on the device from host
+memory by :func:`to_device`). A replayed CUDA graph runs no Python: the
 stages inside a fused restart cycle are timed in its eager and capture
 runs only.
 
@@ -190,8 +192,14 @@ def to_device(data, device, dtype=None) -> torch.Tensor:
     while a tracer is on the bytes of the result as ``h2d_bytes`` unless
     ``data`` is a tensor on that device already (a blocking copy converts
     the dtype on the host, so the result's bytes are those that cross). A
-    CPU device counts them too, as the bytes a card would be sent."""
-    out = torch.as_tensor(data, dtype=dtype, device=device)
+    CPU device counts them too, as the bytes a card would be sent. A
+    tensor in page-locked host memory of the same dtype is copied without
+    waiting for the work queued on the device before it."""
+    if (isinstance(data, torch.Tensor) and data.is_pinned()
+            and dtype in (None, data.dtype)):
+        out = data.to(device, non_blocking=True)
+    else:
+        out = torch.as_tensor(data, dtype=dtype, device=device)
     if _GLOBAL_TRACER is not None and not (isinstance(data, torch.Tensor)
                                            and data.device == out.device):
         _GLOBAL_TRACER.count("h2d_bytes", out.numel() * out.element_size())

@@ -287,6 +287,42 @@ def test_repeat_matvecs_on_card_are_bitwise(cuda, precision):
     assert torch.equal(tree.evaluate_device(w, "src", precision), first)
 
 
+@pytest.mark.parametrize("gate", [None, "0"])
+def test_binning_on_card_is_the_cpus(cuda, monkeypatch, gate):
+    """Target binning on the card builds every table of the CPU tree's,
+    element for element (gated or not, targets over a box wider than the
+    sources'), and synchronizes once, the read of the sizes: the targets'
+    copy from page-locked memory waits for nothing."""
+    import warnings
+
+    if gate is not None:
+        monkeypatch.setenv("FERREUS_RBF_TPU_NODETILE_BYTES", gate)
+    rng = np.random.default_rng(6)
+    blob = rng.normal(scale=0.02, size=(2000, 3)) + 0.25
+    pts = np.clip(np.concatenate([blob, rng.random((500, 3))]), 0, 1)
+    targets = np.concatenate([pts, rng.random((3000, 3)) * 1.6 - 0.3])
+    params = frt.FmmParams(interpolation_order=4, max_points_per_cell=32, epsilon=1e-4)
+    extents = np.array([-0.3] * 3 + [1.3] * 3)
+    trees = [FmmTree(pts, 4, _params("LinearRbf"), adaptive_tree=True, sparse=False,
+                     extents=extents, params=params, device=dev) for dev in ("cpu", cuda)]
+    assert trees[1]._m2p_tiles_gated == (gate is not None)
+    want, got = (tree._bin_targets(targets) for tree in trees)
+    assert got["wtab"] is not None
+    for key in ("tcells", "tcnt", "nbr", "wtab", "wcnt", "inv_flat"):
+        assert got[key].is_cuda and torch.equal(got[key].cpu(), want[key]), key
+    assert torch.equal(got[torch.float64]["tpts"].cpu(), want[torch.float64]["tpts"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trees[1]._binned_tables(targets)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, syncs
+
+
 def test_trend_fit_save_load_on_card_is_bitwise(cuda, tmp_path):
     """A fit under a trend on the iterative path, saved and loaded on the
     card: values and gradients bit for bit the fitted model's."""
